@@ -1,0 +1,159 @@
+"""Simulation state: struct-of-arrays tensor dataclasses.
+
+The same layout as the JAX package's ``core/state.py``, held as plain
+dataclasses of torch tensors on one device. Capacities are fixed when the
+state is built:
+
+    C  event-pool slots
+    K  events extracted per host per window
+    P  payload words per event (stored packed, ``core/soa.py``)
+
+Time is int64 nanoseconds with ``simtime.NEVER`` marking a free pool slot.
+JAX's uint32 fields (the per-host draw counter and the PRNG keys) are held
+in int64 with values in [0, 2**32); every update masks with 0xFFFFFFFF so
+they wrap exactly as the uint32 originals do.
+
+The engine replaces fields with new tensors window by window; it never
+writes into a tensor that a caller may still hold.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from shadow_tpu_torch.core import simtime, soa
+
+PAYLOAD_WORDS = 12
+
+# event kinds, numbered as in the JAX package (only PHOLD's is ported)
+KIND_APP_MSG = 1
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. ``None`` means ``"cuda"``; asking for the card where there is
+    none raises instead of falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return dev
+
+
+@dataclasses.dataclass
+class EventPool:
+    """Pending events, one row per slot; time == NEVER marks a free slot.
+    The total order of events is (time, dst, src, seq)."""
+
+    time: torch.Tensor  # [C] int64 ns
+    dst: torch.Tensor  # [C] int32
+    src: torch.Tensor  # [C] int32
+    seq: torch.Tensor  # [C] int32
+    kind: torch.Tensor  # [C] int32
+    payload: torch.Tensor  # [C, ceil(P/2)] int64, packed
+
+    @classmethod
+    def empty(cls, capacity: int, payload_words: int = PAYLOAD_WORDS,
+              device=None) -> "EventPool":
+        z32 = lambda: torch.zeros(capacity, dtype=torch.int32,  # noqa: E731
+                                  device=device)
+        return cls(
+            time=torch.full((capacity,), simtime.NEVER, dtype=torch.int64,
+                            device=device),
+            dst=z32(), src=z32(), seq=z32(), kind=z32(),
+            payload=torch.zeros((capacity, soa.packed_words(payload_words)),
+                                dtype=torch.int64, device=device),
+        )
+
+    @property
+    def capacity(self) -> int:
+        return self.time.shape[0]
+
+
+@dataclasses.dataclass
+class Counters:
+    """Run counters, int64 scalars; the field names are the JAX package's."""
+
+    events_committed: torch.Tensor
+    events_emitted: torch.Tensor
+    packets_sent: torch.Tensor
+    packets_delivered: torch.Tensor
+    packets_dropped_loss: torch.Tensor
+    packets_dropped_unreachable: torch.Tensor
+    pool_overflow_dropped: torch.Tensor
+    outbox_overflow_dropped: torch.Tensor
+    inbox_overflow_deferred: torch.Tensor
+    outbox_stall_deferred: torch.Tensor
+    micro_steps: torch.Tensor
+    bytes_sent: torch.Tensor
+    bytes_delivered: torch.Tensor
+    bulk_contract_violations: torch.Tensor
+    cpu_delay_applied: torch.Tensor
+    exchange_sent: torch.Tensor
+    exchange_deferred: torch.Tensor
+
+    @classmethod
+    def zeros(cls, device=None) -> "Counters":
+        return cls(**{
+            f.name: torch.zeros((), dtype=torch.int64, device=device)
+            for f in dataclasses.fields(cls)
+        })
+
+
+@dataclasses.dataclass
+class HostState:
+    """Per-host scalars the engine needs, [H] each."""
+
+    seq_next: torch.Tensor  # int32: next per-source sequence number
+    rng_counter: torch.Tensor  # int64 holding uint32: per-host draw counter
+    vertex: torch.Tensor  # int32: vertex in the baked topology
+    gid: torch.Tensor  # int32: global host id of each row
+    done_t: torch.Tensor  # int64: max event time processed (-1 = none)
+    cpu_cost: torch.Tensor  # int64: CPU model cost per event (0 = off)
+    cpu_avail: torch.Tensor  # int64: CPU model next-free time
+
+
+@dataclasses.dataclass
+class NetParams:
+    """The baked network model."""
+
+    latency_vv: torch.Tensor  # [U, U] int64 ns; NEVER = unreachable
+    reliability_vv: torch.Tensor  # [U, U] float32
+    bootstrap_end: int  # ns: no loss rolls before this time
+    # global host → vertex table; None on single-vertex topologies, where
+    # every lookup is the one [0, 0] entry
+    vertex_g: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class SimState:
+    """Everything a window step reads and writes. ``obs`` is the telemetry
+    block (``obs/counters.py``); ``subs`` holds app sub-states by name."""
+
+    now: int  # ns: the current window start
+    pool: EventPool
+    host: HostState
+    counters: Counters
+    rng_keys: torch.Tensor  # [H, 2] int64 holding uint32 key words
+    subs: dict = dataclasses.field(default_factory=dict)
+    obs: object = None
+
+
+def make_host_state(num_hosts: int, host_vertex: np.ndarray,
+                    device=None) -> HostState:
+    H = num_hosts
+    return HostState(
+        seq_next=torch.zeros(H, dtype=torch.int32, device=device),
+        rng_counter=torch.zeros(H, dtype=torch.int64, device=device),
+        vertex=torch.as_tensor(np.asarray(host_vertex), dtype=torch.int32,
+                               device=device),
+        gid=torch.arange(H, dtype=torch.int32, device=device),
+        done_t=torch.full((H,), -1, dtype=torch.int64, device=device),
+        cpu_cost=torch.zeros(H, dtype=torch.int64, device=device),
+        cpu_avail=torch.zeros(H, dtype=torch.int64, device=device),
+    )
