@@ -54,8 +54,8 @@ REF_POOL_OVERFLOW_DROPPED = 0
 REF_AUDIT_CHAIN = 0x2A4DA5031C0CA606
 REF_WINDOWS = 181
 
-# H100 SXM published peaks (on-chip-measurement guide): HBM bytes/s, and
-# float32 outside the tensor cores, the table's nearest rate for the
+# H100 SXM published peaks: HBM bytes/s, and
+# float32 outside the tensor cores, the nearest published rate for the
 # kernels' 32-bit integer work
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
