@@ -1,15 +1,18 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-The main path is the PHOLD flagship at the bench shape (16384 hosts,
-msgload 8, stop 10 s, runtime 10 s, seed 42) through the port's entry
-points: ``build_phold_flagship`` → ``Simulation.run`` → ``counters()`` /
-``audit_chain()``. Phases, each printing its numbers beside the card's
-name and power limit:
+Two main paths run through the port's entry points (``build_simulation``
+or ``build_phold_flagship`` → ``Simulation.run`` → ``counters()`` /
+``audit_chain()``): the PHOLD flagship at the bench shape (16384 hosts,
+msgload 8, stop 10 s, runtime 10 s, seed 42) on the matrix path, and
+BASELINE config 2 (``bench.py:stage_udp_flood``: 10,240 hosts flooding
+1,280 servers over the UDP stack, stop 4 s, seed 7) on the micro-step
+loop path. Phases, each printing its numbers beside the card's name and
+power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the three CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
+2. build the seven CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
    (one process per source, all at once) and print ptxas's register and
    shared-memory report;
 3. each kernel at the bench shape's widths, on inputs taken from a real
@@ -21,15 +24,32 @@ name and power limit:
    bulk-contract count and audit chain must equal the JAX package's
    reference values below, and each kernel must launch once a window;
 5. the same run with the plain versions on the card: counters, chain and
-   the whole final state equal to phase 4's.
+   the whole final state equal to phase 4's;
+6. the loop path's kernels (loop_select, loop_route, codel_dequeue,
+   ring_append) at config 2's widths, on inputs captured from a real
+   window of the flood run (the call with the most active hosts), plus
+   codel_dequeue on a synthetic full-width router state in drop mode with
+   stale packets: each equal bit for bit to its plain version, timed
+   beside its bound; and a profile of a few flood windows (device time by
+   kernel and the device's busy share);
+7. config 2 from t = 0 to the stop in one ``run()`` through the kernels,
+   launch counts set to 0 just before it and read just after: counters
+   and audit chain equal to the JAX package's reference values below, and
+   every kernel of the path launched;
+8. the same run with the plain versions on the card: counters, chain and
+   every state array equal to phase 7's.
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
-Any failure raises, exits non-zero and prints no ok line; with no card,
-or without the rest of the repository beside it, it fails at once.
+A kernel's ``launches`` there is its count over the two main-path runs
+(phases 4 and 7). Any failure raises, exits non-zero and prints no ok
+line; with no card, or without the rest of the repository beside it, it
+fails at once.
 
-The reference values come from the JAX package on a CPU:
+The reference values come from the JAX package on a CPU (README.md, "The
+PyTorch/CUDA port", gives the commands):
 ``build_phold_flagship(16384, msgload=8, stop_s=10, runtime_s=10)`` then
-``sim.run()`` (README.md, "The PyTorch/CUDA port", gives the command).
+``sim.run()``, and config 2 (``CONFIG2`` below) through
+``shadow_tpu.sim.build_simulation`` then ``sim.run()``.
 """
 
 from __future__ import annotations
@@ -41,10 +61,13 @@ import time
 
 import torch
 
+import numpy as np
+
 from shadow_tpu_torch import interop, kernels
 from shadow_tpu_torch.core import engine
 from shadow_tpu_torch.core.simtime import NEVER
 from shadow_tpu_torch.flagship import build_phold_flagship
+from shadow_tpu_torch.sim import build_simulation
 
 BENCH = dict(num_hosts=16384, msgload=8, stop_s=10, runtime_s=10, seed=42)
 REF_EVENTS_COMMITTED = 23_592_960
@@ -53,6 +76,46 @@ REF_PACKETS_SENT = 23_592_960
 REF_POOL_OVERFLOW_DROPPED = 0
 REF_AUDIT_CHAIN = 0x2A4DA5031C0CA606
 REF_WINDOWS = 181
+
+# BASELINE config 2, as bench.py:stage_udp_flood builds it
+CONFIG2 = {
+    "general": {"stop_time": 4, "seed": 7},
+    "network": {"graph": {"type": "gml", "inline": (
+        'graph [\n'
+        '  node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]\n'
+        '  edge [ source 0 target 0 latency "10 ms" packet_loss 0.001 ]\n'
+        ']\n')}},
+    "experimental": {"event_capacity": 32768,
+                     "events_per_host_per_window": 12, "outbox_slots": 8,
+                     "router_queue_slots": 16, "inbox_slots": 4},
+    "hosts": {
+        "server": {"quantity": 1280, "app_model": "udp_flood",
+                   "app_options": {"role": "server"}},
+        "client": {"quantity": 8960, "app_model": "udp_flood",
+                   "app_options": {"interval": "20 ms", "size": 1024,
+                                   "runtime": 3}},
+    },
+}
+REF2_AUDIT_CHAIN = 0x254F6C3715914CB4
+REF2_COUNTERS = {
+    "events_committed": 2_686_663,
+    "events_emitted": 2_686_663,
+    "packets_sent": 1_344_000,
+    "packets_delivered": 1_342_663,
+    "packets_dropped_loss": 1_337,
+    "bytes_sent": 1_413_888_000,
+    "bytes_delivered": 1_374_886_912,
+    "micro_steps": 900,
+    "outbox_stall_deferred": 455_827,
+    "pool_overflow_dropped": 0,
+    "outbox_overflow_dropped": 0,
+    "inbox_overflow_deferred": 0,
+    "bulk_contract_violations": 0,
+}
+# the kernels of each main path
+PHOLD_PATH = ("extract_slots", "phold_forward", "audit_commit")
+LOOP_PATH = ("extract_slots", "audit_commit", "loop_select", "loop_route",
+             "codel_dequeue", "ring_append")
 
 # H100 SXM published peaks: HBM bytes/s, and
 # float32 outside the tensor cores, the nearest published rate for the
@@ -68,6 +131,10 @@ REPLACES = {
     "extract_slots": "shadow_tpu/core/engine.py:388",
     "phold_forward": "shadow_tpu/net/apps.py:207",
     "audit_commit": "shadow_tpu/obs/audit.py:76",
+    "loop_select": "shadow_tpu/core/engine.py:804",
+    "loop_route": "shadow_tpu/core/engine.py:1041",
+    "codel_dequeue": "shadow_tpu/net/codel.py:176",
+    "ring_append": "shadow_tpu/net/codel.py:88",
 }
 
 
@@ -107,6 +174,10 @@ def nbytes(*ts) -> int:
 def max_abs_err(got, want) -> float:
     err = 0.0
     for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        if g is None or w is None:
+            fail("one output is missing")
         if g.dtype != w.dtype or g.shape != w.shape:
             fail(f"output dtype/shape {g.dtype}{tuple(g.shape)} vs "
                  f"{w.dtype}{tuple(w.shape)}")
@@ -244,6 +315,199 @@ def bench_run(card: str, ops, label: str):
     return sim, windows, c, chain, launches
 
 
+# ---------------------------------------------------------------------------
+# the loop path: config 2
+# ---------------------------------------------------------------------------
+
+LOOP_KERNELS = ("loop_select", "loop_route", "codel_dequeue", "ring_append")
+
+
+def activity(name: str, args, out) -> int:
+    """How many hosts a captured call worked for: the call phase 6 keeps
+    is the busiest of the window."""
+    if name == "loop_select":
+        return int(out.valid.sum())
+    if name == "loop_route":
+        return int(args[0].sum())
+    if name == "codel_dequeue":
+        return int(args[12].sum())
+    return int(args[5].sum())
+
+
+def capture_ops(best: dict) -> kernels.WindowOps:
+    """The kernel wrappers, keeping for each loop-path kernel the
+    arguments of its busiest call (``best[name] = (score, args, kw)``)."""
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            score = activity(name, args, out)
+            if name not in best or score > best[name][0]:
+                best[name] = (score, args, kw)
+            return out
+        return call
+    return kernels.KERNEL_OPS._replace(**{
+        n: wrap(n, getattr(kernels.KERNEL_OPS, n)) for n in LOOP_KERNELS})
+
+
+def loop_bytes(name: str, args, kw, out) -> int:
+    """The bytes each kernel must move on this call's data: every input
+    it needs read once, every output written once."""
+    if name == "loop_select":
+        d_t, d_s, d_q, d_k, d_p = args[:5]
+        H, B, PP = d_t.shape[0], args[6].shape[1], d_p.shape[-1]
+        cell = 20 + 8 * PP  # time, src, seq, kind, packed payload
+        bulk = int((out.take_t[:, 1:] != NEVER).sum())
+        per_host = 4 * 4 + B * 20 + cell  # ptr, count, gate, gid; inbox
+        return H * per_host + (H + bulk) * cell + nbytes(*out)
+    if name == "loop_route":
+        boxes = args[10]
+        return nbytes(*args[:10], *boxes) + nbytes(*out.boxes, *out[1:])
+    if name == "codel_dequeue":
+        H, Q, P = args[0].shape
+        pops = int((out.q_head - args[3]).sum())
+        state = nbytes(*args[3:])  # per-host CoDel state, now, mask
+        return state + pops * 16 + H * (4 * P + 4) + nbytes(*out)
+    return nbytes(*(a for a in args if a is not None)) + nbytes(
+        *(o for o in out if o is not None))
+
+
+def synthetic_router(H: int, Q: int, P: int, device, seed: int = 11):
+    """A full-width router state in drop mode with stale packets (the
+    drop branches the 1 Gbit flood never takes): rings 0 to Q deep,
+    sojourns across the 10 ms target, drops due and not yet due."""
+    rs = np.random.default_rng(seed)
+    now = 2_000_000_000 + rs.integers(0, 50_000_000, H)
+    head = rs.integers(0, 1000, H)
+    n = rs.integers(0, Q + 1, H)
+    age = np.where(rs.random((H, Q)) < 0.3, rs.integers(0, 9_000_000, (H, Q)),
+                   rs.integers(10_000_000, 400_000_000, (H, Q)))
+    pl = np.zeros((H, Q, P), np.int32)
+    pl[..., 0] = 17
+    pl[..., 3] = rs.integers(0, 1473, (H, Q))
+    cols = [
+        pl, rs.integers(0, H, (H, Q)).astype(np.int32),
+        (now[:, None] - age).astype(np.int64), head.astype(np.int32),
+        (head + n).astype(np.int32), rs.random(H) < 0.7,
+        np.where(rs.random(H) < 0.3, 0, now - rs.integers(
+            0, 200_000_000, H)).astype(np.int64),
+        (now + rs.integers(-100_000_000, 50_000_000, H)).astype(np.int64),
+        rs.integers(0, 40, H).astype(np.int32),
+        rs.integers(0, 40, H).astype(np.int32),
+        ((pl[..., 3] + 28).sum(axis=1)).astype(np.int64),
+        now.astype(np.int64), rs.random(H) < 0.9,
+    ]
+    return [torch.as_tensor(c, device=device) for c in cols]
+
+
+def phase_loop_kernels(card: str) -> dict:
+    """Phase 6: the loop path's kernels on a real config-2 window, and
+    the flood's device time by kernel over a few windows."""
+    sim = build_simulation(CONFIG2)
+    sim.run(until=2_000_000_000)
+    best: dict = {}
+    sim.ops = capture_ops(best)
+    mn, occ, _ = sim._frontier(sim.stop_time)
+    we = min(mn + sim.runahead, sim.stop_time)
+    sim.step_loop(mn, we, occ)
+    print(f"[{card}] phase 6 inputs: the busiest call of each kernel in "
+          f"the config-2 window [{mn}, {we}), H={sim.num_hosts} "
+          f"K={sim.K} B={sim.B} O={sim.O}: "
+          + json.dumps({k: v[0] for k, v in best.items()}), flush=True)
+    missing = [k for k in LOOP_KERNELS if k not in best]
+    if missing:
+        fail(f"phase 6: the window did not call {missing}")
+    H, Q, P = sim.num_hosts, 16, 12
+    best["codel_dequeue (drop mode)"] = (
+        0, synthetic_router(H, Q, P, sim.device), {"aqm": True})
+    results = {}
+    for label, (_, args, kw) in best.items():
+        name = label.split()[0]
+        kern = getattr(kernels, name)
+        plain = getattr(kernels, f"{name}_plain")
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if name == "loop_route":
+            err = max(max_abs_err(got.boxes, want.boxes),
+                      max_abs_err(got[1:], want[1:]))
+        else:
+            err = max_abs_err(got, want)
+        extra = ""
+        if name == "codel_dequeue":
+            n = int(want.dropped.sum())
+            extra = f" codel_drops={n}"
+            if "drop mode" in label and n == 0:
+                fail("phase 6: the synthetic drop-mode state dropped none")
+        b = bound(loop_bytes(name, args, kw, want), 0)
+        results[label] = dict(
+            err=err, bound=b,
+            ms=time_ms(lambda: kern(*args, **kw), 200),
+            plain_ms=time_ms(lambda: plain(*args, **kw), 20),
+        )
+        r = results[label]
+        print(f"[{card}] phase 6 {label}: max_abs_err={err}{extra} "
+              f"kernel_ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"bound_ms={b[0]:.6f} ({b[1]})", flush=True)
+        if err != 0:
+            fail(f"{label} disagrees with its plain version on the card")
+
+    # where a flood window's time goes: 10 windows timed, then the next
+    # 10 under the profiler (whose own cost inflates their wall)
+    sim.ops = kernels.KERNEL_OPS
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(until=mn + 11 * sim.runahead)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.run(until=mn + 21 * sim.runahead)
+        torch.cuda.synchronize()
+    rows = []  # kernels only: an operator's device time is its kernels'
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    print(f"[{card}] phase 6 10 flood windows: wall_s={wall:.4f}; the next "
+          f"10 profiled: kernel time device_busy_s={busy_s:.4f}, "
+          f"busy_share={busy_s / wall:.4f} of the unprofiled wall; "
+          f"top device time (us, launches): " + json.dumps(
+              [[k[:60], round(us, 1), n] for us, k, n in rows[:12]]),
+          flush=True)
+    kernels.reset_launches()
+    return results
+
+
+def flood_run(card: str, ops, label: str):
+    t0 = time.perf_counter()
+    sim = build_simulation(CONFIG2)
+    sim.ops = ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    windows = sim.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    c = sim.counters()
+    chain = sim.audit_chain()
+    wall = t2 - t1
+    print(f"[{card}] {label}: build_s={t1 - t0:.3f} wall_s={wall:.3f} "
+          f"windows={windows} micro_steps={c['micro_steps']} "
+          f"ms_per_window={wall / windows * 1e3:.4f} "
+          f"events_committed={c['events_committed']} "
+          f"events_per_s={c['events_committed'] / wall:.1f} "
+          f"audit_chain={chain:#018x} launches={launches} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          flush=True)
+    return sim, windows, c, chain, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
@@ -280,7 +544,8 @@ def main() -> None:
         "windows": (windows, REF_WINDOWS),
     }
     for k in kernels.KERNELS:
-        checks[f"{k.name} launches"] = (launches[k.name], windows)
+        checks[f"{k.name} launches"] = (
+            launches[k.name], windows if k.name in PHOLD_PATH else 0)
     for what, (got, want) in checks.items():
         if got != want:
             fail(f"phase 4: {what} = {got}, want {want}")
@@ -305,6 +570,45 @@ def main() -> None:
         fail(f"phase 5: final state differs from phase 4 in {diff}")
     print(f"[{card}] phase 5 plain run equal to phase 4: counters, chain, "
           f"{len(snap)} state arrays", flush=True)
+    del psim, snap, psnap
+
+    loop_results = phase_loop_kernels(card)
+    for label, r in loop_results.items():
+        if " " not in label:
+            results[label] = r
+
+    sim, windows2, c2, chain2, launches2 = flood_run(
+        card, kernels.KERNEL_OPS, "phase 7 config 2 through the kernels")
+    checks = {k: (c2[k], v) for k, v in REF2_COUNTERS.items()}
+    checks["audit_chain"] = (chain2, REF2_AUDIT_CHAIN)
+    for k in LOOP_PATH:
+        if launches2[k] == 0:
+            fail(f"phase 7: kernel {k} never launched")
+    if launches2["phold_forward"]:
+        fail("phase 7: phold_forward launched on the loop path")
+    for what, (got, want) in checks.items():
+        if got != want:
+            fail(f"phase 7: {what} = {got}, want {want}")
+    win = sim.obs_snapshot()["win"]
+    if win["loop_dispatches"] != windows2 or win["matrix_dispatches"]:
+        fail(f"phase 7: not every window took the loop path: {win}")
+    snap = interop.state_to_numpy(sim.state)
+    del sim
+
+    psim, pwindows, pc, pchain, plaunches = flood_run(
+        card, kernels.PLAIN_OPS, "phase 8 config 2, plain versions")
+    if any(plaunches.values()):
+        fail(f"phase 8: a kernel launched in the plain run: {plaunches}")
+    if (pwindows, pc, pchain) != (windows2, c2, chain2):
+        fail("phase 8: the plain run's windows, counters or chain differ")
+    psnap = interop.state_to_numpy(psim.state)
+    diff = [k for k in snap if not (snap[k].dtype == psnap[k].dtype
+                                    and snap[k].shape == psnap[k].shape
+                                    and (snap[k] == psnap[k]).all())]
+    if diff or sorted(snap) != sorted(psnap):
+        fail(f"phase 8: final state differs from phase 7 in {diff}")
+    print(f"[{card}] phase 8 plain run equal to phase 7: counters, chain, "
+          f"{len(snap)} state arrays (pool, host, obs, subs)", flush=True)
 
     line = {"kernels": [
         {
@@ -312,7 +616,7 @@ def main() -> None:
             "route": "cuda",
             "source": f"shadow_tpu_torch/csrc/{k.name}.cu",
             "replaces": REPLACES[k.name],
-            "launches": launches[k.name],
+            "launches": launches[k.name] + launches2[k.name],
             "max_abs_err": results[k.name]["err"],
             "ms": results[k.name]["ms"],
             "plain_ms": results[k.name]["plain_ms"],

@@ -22,6 +22,7 @@ native uint32 arithmetic.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -29,14 +30,44 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _rotl(x, r: int):
-    return ((x << r) | (x >> (32 - r))) & M32
-
-
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds (Salmon et al., SC'11), as in
     ``jax._src.prng.threefry2x32``. All arguments are int64 tensors (or
-    ints) holding uint32 values; returns the two output words likewise."""
+    ints) holding uint32 values; returns the two output words likewise.
+    CPU arguments go through numpy's native uint32 arithmetic, where each
+    of the ~120 elementwise steps costs far less at the engine's small
+    widths; card tensors through ``threefry2x32_torch``. Both give the same
+    bits (``tests/test_torch_rng.py``)."""
+    args = (k0, k1, x0, x1)
+    if all(not isinstance(a, torch.Tensor) or a.device.type == "cpu"
+           for a in args):
+        return _threefry2x32_numpy(*args)
+    return threefry2x32_torch(*args)
+
+
+def _threefry2x32_numpy(k0, k1, x0, x1):
+    def u32(a):
+        a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return a.astype(np.uint32)
+
+    k0, k1, x0, x1 = np.broadcast_arrays(*(u32(a) for a in (k0, k1, x0, x1)))
+    with np.errstate(over="ignore"):
+        ks = (k0, k1, k0 ^ k1 ^ np.uint32(_PARITY))
+        x0 = x0 + ks[0]
+        x1 = x1 + ks[1]
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = x0 + x1
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return (torch.from_numpy(np.array(x0, dtype=np.int64)),
+            torch.from_numpy(np.array(x1, dtype=np.int64)))
+
+
+def threefry2x32_torch(k0, k1, x0, x1):
+    """``threefry2x32`` in torch int64 arithmetic masked to 32 bits, for
+    tensors on any device."""
     k0 = torch.as_tensor(k0, dtype=torch.int64)
     k1 = torch.as_tensor(k1, dtype=torch.int64)
     ks = (k0, k1, (k0 ^ k1 ^ _PARITY) & M32)
@@ -44,8 +75,10 @@ def threefry2x32(k0, k1, x0, x1):
     x1 = (torch.as_tensor(x1, dtype=torch.int64) + ks[1]) & M32
     for i in range(5):
         for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & M32
-            x1 = _rotl(x1, r) ^ x0
+            # x0 is masked once per four rounds (it stays below 2**35);
+            # only its low 32 bits reach x1, which is masked every round
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & M32
         x0 = (x0 + ks[(i + 1) % 3]) & M32
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
     return x0, x1

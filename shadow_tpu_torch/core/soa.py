@@ -36,3 +36,52 @@ def unpack_words(packed: torch.Tensor, P: int) -> torch.Tensor:
 
 def packed_words(P: int) -> int:
     return (P + 1) // 2
+
+
+# ---------------------------------------------------------------------------
+# Masked per-row slot access (the JAX package's get_at / set_at / add_at)
+# ---------------------------------------------------------------------------
+#
+# ``arr`` is [H, S] or [H, S, P]; ``col`` is [H] (one slot per host);
+# ``mask`` is [H]; ``val`` is a scalar, [H] or [H, P]. A slot outside
+# [0, S) reads as 0 and is never written, as in the JAX package: a bare
+# gather would raise there instead.
+
+
+def _hit(arr: torch.Tensor, mask, col: torch.Tensor) -> torch.Tensor:
+    cols = torch.arange(arr.shape[1], dtype=col.dtype, device=arr.device)
+    hit = cols[None, :] == col[:, None]
+    return hit if mask is None else hit & mask[:, None]
+
+
+def _val(arr: torch.Tensor, val) -> torch.Tensor:
+    val = torch.as_tensor(val, dtype=arr.dtype, device=arr.device)
+    if arr.dim() == 3 and val.dim() == 2:
+        return val[:, None, :]
+    if arr.dim() == 2 and val.dim() == 1:
+        return val[:, None]
+    return val
+
+
+def get_at(arr: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """arr[h, col[h]]; 0 where col[h] is outside [0, S)."""
+    hit = _hit(arr, None, col)
+    if arr.dim() == 3:
+        hit = hit[:, :, None]
+    return torch.where(hit, arr, 0).sum(dim=1, dtype=arr.dtype)
+
+
+def set_at(arr: torch.Tensor, mask, col: torch.Tensor, val) -> torch.Tensor:
+    """arr[h, col[h]] = val[h] where mask[h]."""
+    hit = _hit(arr, mask, col)
+    if arr.dim() == 3:
+        hit = hit[:, :, None]
+    return torch.where(hit, _val(arr, val), arr)
+
+
+def add_at(arr: torch.Tensor, mask, col: torch.Tensor, val) -> torch.Tensor:
+    """arr[h, col[h]] += val[h] where mask[h]."""
+    hit = _hit(arr, mask, col)
+    if arr.dim() == 3:
+        hit = hit[:, :, None]
+    return arr + torch.where(hit, _val(arr, val), 0)

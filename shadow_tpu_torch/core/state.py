@@ -28,8 +28,21 @@ from shadow_tpu_torch.core import simtime, soa
 
 PAYLOAD_WORDS = 12
 
-# event kinds, numbered as in the JAX package (only PHOLD's is ported)
-KIND_APP_MSG = 1
+# event kinds, numbered as in the JAX package
+KIND_APP_MSG = 1  # app-level message delivery (PHOLD)
+KIND_APP_TIMER = 2  # app-defined timer
+KIND_PKT_DELIVER = 3  # packet arrives at the destination host
+KIND_NIC_REFILL = 4  # the NIC receive pump (net/stack.py KIND_NIC_RECV)
+
+
+def replace(obj, **fields):
+    """A copy of the dataclass ``obj`` with ``fields`` replaced: a new
+    object sharing every other field's tensor (``dataclasses.replace``
+    without the re-run of ``__init__``, which the micro-step loop would
+    pay tens of thousands of times a run)."""
+    new = object.__new__(type(obj))
+    new.__dict__ = {**obj.__dict__, **fields}
+    return new
 
 
 def resolve_device(device=None) -> torch.device:
@@ -142,6 +155,41 @@ class SimState:
     rng_keys: torch.Tensor  # [H, 2] int64 holding uint32 key words
     subs: dict = dataclasses.field(default_factory=dict)
     obs: object = None
+
+    # The loop path's handlers update the state functionally, as the JAX
+    # package's do: each helper returns a new SimState and leaves this one
+    # (and every tensor it holds) as it was.
+
+    def replace(self, **fields) -> "SimState":
+        return replace(self, **fields)
+
+    def with_sub(self, key: str, value) -> "SimState":
+        subs = dict(self.subs)
+        subs[key] = value
+        return replace(self, subs=subs)
+
+    def with_host(self, **fields) -> "SimState":
+        return replace(self, host=replace(self.host, **fields))
+
+    def add_counters(self, **deltas) -> "SimState":
+        """Add each delta (an int64 scalar tensor) to its counter."""
+        c = self.counters
+        return replace(self, counters=replace(
+            c, **{k: getattr(c, k) + v for k, v in deltas.items()}))
+
+    def detached_copy(self) -> "SimState":
+        """A copy whose containers (host, counters, obs, subs and each
+        sub-state) are new objects sharing this state's tensors: what a
+        handler does to the copy's fields leaves this state as it was."""
+        def sub(v):
+            if isinstance(v, dict):
+                return dict(v)
+            return replace(v) if dataclasses.is_dataclass(v) else v
+        return replace(
+            self, host=replace(self.host), counters=replace(self.counters),
+            obs=None if self.obs is None else replace(self.obs),
+            subs={k: sub(v) for k, v in self.subs.items()},
+        )
 
 
 def make_host_state(num_hosts: int, host_vertex: np.ndarray,

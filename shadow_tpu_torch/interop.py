@@ -2,9 +2,10 @@
 
 ``state_to_numpy`` flattens a port ``SimState`` into ``{path: array}``
 with paths like ``pool.time``, ``host.rng_counter``,
-``counters.events_committed``, ``obs.host_digest``, ``rng_keys`` and
-``subs.phold.received``; ``state_from_numpy`` builds a ``SimState`` from
-such a dict on a device. The JAX package's state has the same field
+``counters.events_committed``, ``obs.host_digest``, ``rng_keys``,
+``subs.phold.received`` (an app's dict sub-state) and ``subs.nic.tx_rem``
+(a network sub-state: ``nic``, ``router``, ``udp``); ``state_from_numpy``
+builds a ``SimState`` from such a dict on a device. The JAX package's state has the same field
 names, so a test flattens it by the same paths and the two dicts compare
 key by key. The uint32 fields of the JAX package (``host.rng_counter``,
 ``rng_keys``) travel as uint32 and live in int64 on the port's side.
@@ -24,11 +25,15 @@ from shadow_tpu_torch.core.state import (
     HostState,
     SimState,
 )
+from shadow_tpu_torch.net import codel, nic, udp
 from shadow_tpu_torch.obs.counters import ObsBlock
 
 UINT32_PATHS = ("host.rng_counter", "rng_keys")
 _GROUPS = (("pool", EventPool), ("host", HostState),
            ("counters", Counters), ("obs", ObsBlock))
+# sub-states held as dataclasses, by sub name; every other sub is a dict
+SUB_CLASSES = {nic.SUB: nic.NicState, codel.SUB: codel.RouterState,
+               udp.SUB: udp.UdpState}
 
 
 def state_paths(state: SimState) -> list[str]:
@@ -37,7 +42,9 @@ def state_paths(state: SimState) -> list[str]:
     for name, cls in _GROUPS:
         paths += [f"{name}.{f.name}" for f in dataclasses.fields(cls)]
     for sub, d in state.subs.items():
-        paths += [f"subs.{sub}.{k}" for k in d]
+        keys = ([f.name for f in dataclasses.fields(d)]
+                if dataclasses.is_dataclass(d) else list(d))
+        paths += [f"subs.{sub}.{k}" for k in keys]
     return paths
 
 
@@ -74,6 +81,9 @@ def state_from_numpy(arrays: dict, device=None) -> SimState:
         if path.startswith("subs."):
             _, sub, key = path.split(".", 2)
             subs.setdefault(sub, {})[key] = _tensor(a, device)
+    for sub, cls in SUB_CLASSES.items():
+        if sub in subs:
+            subs[sub] = cls(**subs[sub])
     return SimState(
         now=int(np.asarray(arrays["now"])),
         rng_keys=_tensor(arrays["rng_keys"], device),

@@ -30,7 +30,7 @@ _K_TIME = _i64(0xBF58476D1CE4E5B9)
 _K_SRC = _i64(0x94D049BB133111EB)
 _K_DST = _i64(0x2545F4914F6CDD1D)
 _K_KIND = _i64(0xFF51AFD7ED558CCD)
-_CHAIN_MULT = _i64(0x5851F42D4C957F2D)
+CHAIN_MULT = _i64(0x5851F42D4C957F2D)
 _COMBINE_MULT = 0x9E3779B97F4A7C15
 _LOW33 = (1 << 33) - 1
 
@@ -46,7 +46,7 @@ def event_key(time, src, dst, kind) -> torch.Tensor:
 
 def fold(digest, mask, time, src, dst, kind) -> torch.Tensor:
     """One chain step per masked host: digest * MULT + key(event)."""
-    nd = digest * _CHAIN_MULT + event_key(time, src, dst, kind)
+    nd = digest * CHAIN_MULT + event_key(time, src, dst, kind)
     return torch.where(mask, nd, digest)
 
 

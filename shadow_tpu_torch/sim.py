@@ -1,10 +1,11 @@
 """Top-level simulation builder: Config → runnable Simulation.
 
-The PHOLD branch of the JAX package's ``sim.py:build_simulation``: load
-the topology, attach and register the hosts, bake the paths, and build a
-``Simulation`` whose window step runs on the device. Other app models and
-the engine options the port does not have yet raise ``BuildError`` naming
-their ``ROADMAP.md`` queue item.
+The JAX package's ``sim.py:build_simulation`` for PHOLD and the UDP
+network stack (``udp_flood``, ``udp_echo``): load the topology, attach
+and register the hosts, bake the paths, and build a ``Simulation`` whose
+window step runs on the device. Other app models and the engine options
+the port does not have yet raise ``BuildError`` naming their
+``ROADMAP.md`` queue item.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from shadow_tpu_torch.core import simtime, units
 from shadow_tpu_torch.core.config import Config, load_config
 from shadow_tpu_torch.core.engine import Simulation
 from shadow_tpu_torch.core.state import NetParams, resolve_device
-from shadow_tpu_torch.net.apps import PholdApp
+from shadow_tpu_torch.net.apps import PholdApp, UdpEchoApp, UdpFloodApp
 from shadow_tpu_torch.routing.dns import Dns
 from shadow_tpu_torch.routing.topology import BakedPaths, Topology
 
@@ -37,11 +38,23 @@ def _refuse_unported(cfg: Config) -> None:
          "running without the obs block and audit chain", "A 8"),
         (any(h.cpu_ns_per_event for h in cfg.hosts),
          "the CPU model (cpu_ns_per_event)", "A 4"),
+        (x.packet_trails, "packet trails (packet_trails)", "A 7"),
     ]
     for bad, what, item in unported:
         if bad:
             raise BuildError(f"{what} is not ported to shadow_tpu_torch yet "
                              f"(ROADMAP.md queue {item})")
+
+
+def _qdisc_discipline(cfg: Config):
+    """The egress discipline of the ``qdisc:`` section (or the legacy
+    ``experimental.interface_qdisc`` string): fifo and roundrobin; pifo
+    and eiffel raise."""
+    from shadow_tpu_torch.net import qdisc as qdisc_mod
+
+    q = cfg.qdisc.discipline
+    eff = q if q != "fifo" else cfg.experimental.interface_qdisc
+    return qdisc_mod.make_discipline(eff)
 
 
 def build_simulation(source, device=None) -> Simulation:
@@ -53,12 +66,18 @@ def build_simulation(source, device=None) -> Simulation:
     if not cfg.hosts:
         raise BuildError("no hosts configured")
     app_names = {h.app_model for h in cfg.hosts if h.app_model}
-    if app_names != {"phold"}:
+    unknown = app_names - {"phold", "udp_flood", "udp_echo", "tcp_bulk"}
+    if unknown:
+        raise BuildError(f"unknown app model(s): {sorted(unknown)}")
+    if "tcp_bulk" in app_names:
         raise BuildError(
-            f"app models {sorted(app_names)}: shadow_tpu_torch runs only "
-            f"phold so far (ROADMAP.md queue A 7 ports the network stack "
-            f"apps, A 12 managed processes)"
-        )
+            "app model tcp_bulk: TCP is not ported to shadow_tpu_torch yet "
+            "(ROADMAP.md queue A 7, device function B11)")
+    if len(app_names) != 1:
+        raise BuildError(
+            f"app models {sorted(app_names)}: one app model per simulation, "
+            f"run by every host (managed processes are ROADMAP.md queue "
+            f"A 12)")
     _refuse_unported(cfg)
 
     topo = Topology.from_gml(cfg.graph_gml(), cfg.network.use_shortest_path)
@@ -94,13 +113,29 @@ def build_simulation(source, device=None) -> Simulation:
             f"may be processed one window late (accuracy/speed tradeoff)",
             stacklevel=2,
         )
+    x = cfg.experimental
+    common = dict(
+        num_hosts=len(cfg.hosts), params=params,
+        host_vertex=baked.host_vertex, seed=cfg.general.seed,
+        stop_time=cfg.general.stop_time, runahead=runahead,
+        event_capacity=x.event_capacity, K=x.events_per_host_per_window,
+        B=x.inbox_slots, O=x.outbox_slots, device=dev,
+    )
+    if "phold" in app_names:
+        sim, app = _build_phold(cfg, baked, common)
+    else:
+        sim, app = _build_stack(cfg, baked, common, next(iter(app_names)))
+    sim.config = cfg
+    sim.topology = topo
+    sim.dns = dns
+    sim.baked = baked
+    sim.app = app
+    return sim
 
-    H = len(cfg.hosts)
-    phold_hosts = [h for h in cfg.hosts if h.app_model == "phold"]
-    if len(phold_hosts) != H:
-        raise BuildError(
-            "phold app model currently requires every host to run it"
-        )
+
+def _build_phold(cfg: Config, baked: BakedPaths, common: dict):
+    H = common["num_hosts"]
+    phold_hosts = cfg.hosts
     distinct = {tuple(sorted(h.app_options.items())) for h in phold_hosts}
     if len(distinct) > 1:
         raise BuildError(
@@ -118,16 +153,9 @@ def build_simulation(source, device=None) -> Simulation:
         hot_share=float(opts.get("hot_share", 0.0)),
         local_span=int(opts.get("local_span", 0)),
     )
-    # the matrix path's draw-offset arithmetic (two draws per send) needs
-    # every destination reachable
-    if np.any(latency_vv == simtime.NEVER):
-        raise BuildError(
-            "phold over a topology with unreachable paths takes the "
-            "micro-step loop path, which is not ported yet (ROADMAP.md "
-            "queue A 4)"
-        )
-    ((bulk_kind, width),) = app.bulk_kinds().items()
-    outbox = cfg.experimental.outbox_slots
+    bulk_kinds = app.bulk_kinds()
+    ((bulk_kind, width),) = bulk_kinds.items()
+    outbox = common["O"]
     if width > outbox:
         # the JAX package refuses this shape when it builds its window step
         # (one emission per PHOLD event, a bulk batch of `width` events)
@@ -136,25 +164,101 @@ def build_simulation(source, device=None) -> Simulation:
             f"(kind {bulk_kind}: 1 emissions x G={width}); raise "
             f"outbox_slots or lower the bulk width"
         )
+    # the matrix path's draw-offset arithmetic (two draws per send) needs
+    # every destination reachable; otherwise every window takes the loop
+    reachable = not np.any(np.asarray(baked.latency_vv) == simtime.NEVER)
     sim = Simulation(
-        num_hosts=H,
-        params=params,
-        host_vertex=baked.host_vertex,
-        seed=cfg.general.seed,
-        stop_time=cfg.general.stop_time,
-        runahead=runahead,
-        bulk_kind=bulk_kind,
-        matrix_handler=app.handle_msg_matrix,
-        event_capacity=cfg.experimental.event_capacity,
-        K=cfg.experimental.events_per_host_per_window,
-        subs={PholdApp.SUB: app.init_sub(dev)},
+        **common,
+        handlers=app.handlers(),
+        bulk_kinds=bulk_kinds,
+        matrix_handler=app.handle_msg_matrix if reachable else None,
+        subs={PholdApp.SUB: app.init_sub(common["device"])},
         initial_events=app.initial_events(),
         payload_words=PholdApp.PAYLOAD_WORDS,
+    )
+    return sim, app
+
+
+def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
+    """The network-stack branch for ``udp_flood`` / ``udp_echo``."""
+    from shadow_tpu_torch.net.stack import NetStack
+
+    H = common["num_hosts"]
+    dev = common["device"]
+    roles = {}
+    client_opts = None
+    for i, h in enumerate(cfg.hosts):
+        roles[i] = str(h.app_options.get("role", "client"))
+        if roles[i] == "client":
+            o = {k: v for k, v in h.app_options.items() if k != "role"}
+            if client_opts is None:
+                client_opts = o
+            elif client_opts != o:
+                raise BuildError(
+                    f"{name} client app_options must be identical")
+    servers = [i for i, r in roles.items() if r == "server"]
+    if not servers:
+        raise BuildError(f"{name} needs at least one role: server host")
+    client_opts = client_opts or {}
+
+    # per-host bandwidths: the host's own, else its vertex's
+    bw_up = np.zeros(H, dtype=np.int64)
+    bw_down = np.zeros(H, dtype=np.int64)
+    for i, h in enumerate(cfg.hosts):
+        v = baked.host_vertex[i]
+        bw_up[i] = h.bandwidth_up or baked.vertex_bw_up_bits[v]
+        bw_down[i] = h.bandwidth_down or baked.vertex_bw_down_bits[v]
+        if bw_up[i] <= 0 or bw_down[i] <= 0:
+            raise BuildError(
+                f"host {h.name}: no bandwidth configured (host or graph "
+                f"vertex must set bandwidth_up/down)"
+            )
+    x = cfg.experimental
+    stack = NetStack(
+        H, bw_up, bw_down,
+        sockets_per_host=x.sockets_per_host,
+        router_queue_slots=x.router_queue_slots,
+        router_variant=x.router_queue_variant,
+        discipline=_qdisc_discipline(cfg),
+        payload_words=12,
         device=dev,
     )
-    sim.config = cfg
-    sim.topology = topo
-    sim.dns = dns
-    sim.baked = baked
-    sim.app = app
-    return sim
+    interval = units.parse_time_ns(client_opts.get("interval", "100 ms"),
+                                   default_unit="ms")
+    start = units.parse_time_ns(client_opts.get("start_time", 1))
+    stop_send = (units.parse_time_ns(client_opts["runtime"]) + start
+                 if "runtime" in client_opts else None)
+    if name == "udp_flood":
+        app = UdpFloodApp(
+            H, servers, interval,
+            size_bytes=int(client_opts.get("size", 1024)),
+            start_time=start, stop_sending=stop_send,
+            local_span=int(client_opts.get("local_span", 0)),
+        )
+    else:
+        if len(servers) != 1:
+            raise BuildError("udp_echo supports exactly one server host")
+        app = UdpEchoApp(
+            H, servers[0], interval,
+            size_bytes=int(client_opts.get("size", 512)),
+            start_time=start, stop_sending=stop_send,
+        )
+    app.attach(stack)
+    stack.on_receive(app.on_receive)
+    handlers = dict(stack.handlers())
+    handlers.update(app.handlers())
+    subs = stack.init_subs()
+    subs[app.SUB] = app.init_sub(dev)
+    bulk_kinds = stack.bulk_kinds()
+    sim = Simulation(
+        **common,
+        handlers=handlers,
+        bulk_kinds=bulk_kinds,
+        bulk_gate=stack.bulk_gate if bulk_kinds else None,
+        bulk_self_excluded=bulk_kinds is not None,
+        subs=subs,
+        initial_events=app.initial_events(),
+        payload_words=12,
+    )
+    sim.stack = stack
+    return sim, app

@@ -96,7 +96,8 @@ def _oracle_sim(H, seed, latency, rel, msgload, runtime, stop):
     )
     sim = Simulation(
         num_hosts=H, params=params, host_vertex=np.zeros(H, np.int32),
-        seed=seed, stop_time=stop, runahead=latency, bulk_kind=KIND_APP_MSG,
+        seed=seed, stop_time=stop, runahead=latency,
+        handlers=app.handlers(), bulk_kinds=app.bulk_kinds(),
         matrix_handler=app.handle_msg_matrix, event_capacity=4096, K=16,
         subs={PholdApp.SUB: app.init_sub()},
         initial_events=app.initial_events(),
@@ -144,14 +145,20 @@ def test_port_refuses_what_it_does_not_run():
                                device="cpu")
     with pytest.raises(PoolExhausted, match="spill"):
         sim.run()
-    # a window holding a non-bulk event needs the loop path
+    # a window holding an event of a kind without a handler takes the
+    # loop path, which commits it without running anything (the JAX
+    # package's engine does the same)
     sim = _oracle_sim(4, 1, 50 * MS, 1.0, 1, SEC, 3 * SEC)
     sim.state.pool.kind[0] = KIND_APP_MSG + 1
-    with pytest.raises(NotImplementedError, match="loop path"):
-        sim.run()
+    sim.run()
+    win = sim.obs_snapshot()["win"]
+    assert win["loop_dispatches"] == 1
+    assert win["matrix_dispatches"] == win["windows_run"] - 1
+    assert sim.counters()["events_committed"] == int(
+        sim.state.subs[PholdApp.SUB]["received"].sum()) + 1
     with pytest.raises(BuildError, match="ROADMAP"):
         build_simulation({
             "general": {"stop_time": 2},
             "network": {"graph": {"type": "1_gbit_switch"}},
-            "hosts": {"h": {"quantity": 2, "app_model": "udp_flood"}},
+            "hosts": {"h": {"quantity": 2, "app_model": "tcp_bulk"}},
         }, device="cpu")

@@ -12,6 +12,7 @@ import torch
 
 from shadow_tpu_torch import kernels
 from shadow_tpu_torch.flagship import build_phold_flagship
+from shadow_tpu_torch.sim import build_simulation
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "shadow_tpu"}
@@ -62,6 +63,17 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
         build_phold_flagship(8, device="cuda")
     sim = build_phold_flagship(8, stop_s=2, device="cpu")
     assert sim.state.pool.time.device.type == "cpu"
+    flood = {
+        "general": {"stop_time": 2},
+        "network": {"graph": {"type": "1_gbit_switch"}},
+        "hosts": {"s": {"app_model": "udp_flood",
+                        "app_options": {"role": "server"}},
+                  "c": {"quantity": 2, "app_model": "udp_flood"}},
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_simulation(flood)
+    sim = build_simulation(flood, device="cpu")
+    assert sim.state.subs["nic"].tx_rem.device.type == "cpu"
 
 
 def test_wrappers_take_no_other_device():

@@ -67,3 +67,28 @@ def test_counter_wraps_like_uint32():
     a = trng.uniform_matrix(hk, torch.full((4, 1), 2**32 - 1) + 1 & trng.M32)
     b = trng.uniform_matrix(hk, torch.zeros((4, 1), dtype=torch.int64))
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_threefry_torch_and_numpy_paths_match_jax(seed):
+    """The CPU (numpy) and card (torch) forms of threefry2x32 give JAX's
+    bits, here both on CPU tensors: keys and counters across the uint32
+    range, including the wrap point."""
+    from jax._src import prng as jprng
+
+    rs = np.random.default_rng(seed)
+    n = 257
+    count = rs.integers(0, 2**32, size=2 * n, dtype=np.int64)
+    count[:3] = [0, 1, 2**32 - 1]
+    for k0, k1 in ((0, seed & 0xFFFFFFFF), (2**32 - 1, 12345),
+                   tuple(rs.integers(0, 2**32, 2))):
+        want = np.asarray(jprng.threefry_2x32(
+            (np.uint32(k0), np.uint32(k1)),
+            jnp.asarray(count.astype(np.uint32)))).astype(np.int64)
+        for fn in (trng.threefry2x32, trng.threefry2x32_torch):
+            y0, y1 = fn(torch.tensor(int(k0)), torch.tensor(int(k1)),
+                        torch.from_numpy(count[:n]),
+                        torch.from_numpy(count[n:]))
+            assert y0.dtype == y1.dtype == torch.int64
+            assert np.array_equal(np.concatenate([y0.numpy(), y1.numpy()]),
+                                  want)
