@@ -25,13 +25,15 @@ power limit:
    reference values below, and each kernel must launch once a window;
 5. the same run with the plain versions on the card: counters, chain and
    the whole final state equal to phase 4's;
-6. the loop path's kernels (loop_select, loop_route, codel_dequeue,
-   ring_append) at config 2's widths, on inputs captured from a real
-   window of the flood run (the call with the most active hosts), plus
+6. every kernel of the loop path (extract_slots at Kc = 13, audit_commit
+   on the micro-steps' taken events, loop_select, loop_route,
+   codel_dequeue, ring_append) at config 2's widths, on inputs captured
+   from a real window of the flood run (each kernel's busiest call), plus
    codel_dequeue on a synthetic full-width router state in drop mode with
    stale packets: each equal bit for bit to its plain version, timed
-   beside its bound; and a profile of a few flood windows (device time by
-   kernel and the device's busy share);
+   beside its bound; and a few flood windows run twice from one state,
+   alone and under the profiler (device time by kernel and the device's
+   busy share of the same windows);
 7. config 2 from t = 0 to the stop in one ``run()`` through the kernels,
    launch counts set to 0 just before it and read just after: counters
    and audit chain equal to the JAX package's reference values below, and
@@ -40,10 +42,11 @@ power limit:
    every state array equal to phase 7's.
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
-A kernel's ``launches`` there is its count over the two main-path runs
-(phases 4 and 7). Any failure raises, exits non-zero and prints no ok
-line; with no card, or without the rest of the repository beside it, it
-fails at once.
+The line has one entry for each kernel on each main path (``path``
+"phold" or "config2"): its ``launches`` in that path's run (phase 4 or
+7), and its times and bound on that path's inputs (phase 3 or 6). Any
+failure raises, exits non-zero and prints no ok line; with no card, or
+without the rest of the repository beside it, it fails at once.
 
 The reference values come from the JAX package on a CPU (README.md, "The
 PyTorch/CUDA port", gives the commands):
@@ -193,6 +196,77 @@ def bound(bytes_moved: int, ops: int):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def kernel_bound(name: str, args, kw, out):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for this call's function on this call's data. Bytes: every input the
+    function needs read once, every output written once; a ring or box
+    slot the call leaves as it was is neither, so the out-of-place copies
+    the engine's functional state makes are not counted. Operations: the
+    32-bit integer work at the float32 peak."""
+    if name == "extract_slots":
+        s_k1 = args[0]
+        N = s_k1.shape[0]
+        # read each sorted key, write its slot; a compare with the row
+        # before, the run start, the rank and the slot
+        return bound(nbytes(s_k1, out), 4 * N)
+    if name == "phold_forward":
+        n_send = int(out.stats[:, 1].sum())
+        H, K = args[0].shape
+        return bound(nbytes(*args) + nbytes(*out),
+                     UNIFORM_OPS * (H * K + n_send))
+    if name == "audit_commit":
+        d_t, gid = args[0], args[3]
+        n_valid = int(out.n_valid.sum())
+        # every cell's time; the src and kind of the committed ones
+        return bound(nbytes(d_t, gid, *args[4:]) + 8 * n_valid
+                     + nbytes(*out), 16 * n_valid)
+    if name == "loop_select":
+        d_p, i_t, gate = args[4], args[6], args[12]
+        H, B, PP = d_p.shape[0], i_t.shape[1], d_p.shape[-1]
+        valid = int(out.valid.sum())
+        bulk = int((out.take_t[:, 1:] != NEVER).sum())
+        cleared = int((out.inbox_time != i_t).any(dim=1).sum())
+        per_host = (20  # the head cell's time, src, seq, kind
+                    + 12 + (0 if gate is None else 4)  # ptr, count, gid
+                    + B * 16)  # the inbox keys
+        reads = (H * per_host + valid * 8 * PP  # the taken event's payload
+                 + bulk * (20 + 8 * PP) + nbytes(args[14]))
+        writes = nbytes(*out[:8]) + cleared * 8
+        return bound(reads + writes, 0)
+    if name == "loop_route":
+        m, p, boxes = args[0], args[4], args[10]
+        B, PP = boxes.i_t.shape[1], p.shape[-1]
+        n_rec = int(m.sum())
+        active = int(m.any(dim=0).sum())
+        placed = n_rec - int(out.stats[:, 2].sum())
+        # each record's time, dst, kind and payload; each active host's
+        # seq counter, gid, deferred key, inbox times and outbox count
+        reads = (nbytes(m) + n_rec * (16 + 8 * PP)
+                 + active * (4 + 4 + 16 + 8 * B + 4))
+        writes = (placed * (20 + 8 * PP)  # one box cell a placed record
+                  + nbytes(out.seq_next, out.stats, out.boxes.o_count))
+        return bound(reads + writes, 0)
+    if name == "codel_dequeue":
+        H, Q, P = args[0].shape
+        pops = int((out.q_head - args[3]).sum())
+        popped = int((out.q_head != args[3]).sum())
+        reads = (nbytes(*args[3:])  # per-host CoDel state, now, mask
+                 + H * (4 * P + 4)  # the head slot handed up
+                 + pops * 8  # each popped slot's enqueue time
+                 + (pops - popped) * (4 * P + 4))  # the slots re-popped
+        return bound(reads + nbytes(*out), 0)
+    if name == "ring_append":
+        q_payload, _, q_ts, q_head, q_tail, mask = args[:6]
+        total = args[9]
+        P = q_payload.shape[2]
+        n = int(out.ok.sum())
+        slot = 4 * P + 4 + (0 if q_ts is None else 8)
+        reads = nbytes(mask, q_head, q_tail, total) + n * slot
+        writes = n * slot + nbytes(out.tail, out.ok, out.total_size)
+        return bound(reads + writes, 0)
+    raise ValueError(name)
+
+
 def window_inputs(card: str):
     """Run the bench shape up to mid-run and return (sim, ws, we) of the
     next window, its state untouched."""
@@ -215,11 +289,11 @@ def phase_kernels(card: str) -> dict:
     # K3: extract_slots on the first sort's keys
     s_k1, _ = engine.window_keys(st.pool, ws, we, H, K)
     N = s_k1.shape[0]
-    err = max_abs_err([kernels.extract_slots(s_k1, H, K)],
-                      [kernels.extract_slots_plain(s_k1, H, K)])
-    b = bound(nbytes(s_k1) + N * 4, N * 3 * max(1, N.bit_length()))
+    want = kernels.extract_slots_plain(s_k1, H, K)
+    err = max_abs_err([kernels.extract_slots(s_k1, H, K)], [want])
     results["extract_slots"] = dict(
-        err=err, bound=b, shape=f"N={N}",
+        err=err, bound=kernel_bound("extract_slots", (s_k1, H, K), {}, want),
+        shape=f"N={N}",
         ms=time_ms(lambda: kernels.extract_slots(s_k1, H, K), 200),
         plain_ms=time_ms(lambda: kernels.extract_slots_plain(s_k1, H, K), 20),
     )
@@ -236,10 +310,9 @@ def phase_kernels(card: str) -> dict:
     want = kernels.phold_forward_plain(*fargs, **fkw)
     err = max_abs_err(got, want)
     n_send = int(want.stats[:, 1].sum())
-    b = bound(nbytes(*fargs) + nbytes(*want),
-              UNIFORM_OPS * (H * K + n_send))
     results["phold_forward"] = dict(
-        err=err, bound=b, shape=f"H={H} K={K} sends={n_send}",
+        err=err, bound=kernel_bound("phold_forward", fargs, fkw, want),
+        shape=f"H={H} K={K} sends={n_send}",
         ms=time_ms(lambda: kernels.phold_forward(*fargs, **fkw), 200),
         plain_ms=time_ms(lambda: kernels.phold_forward_plain(*fargs, **fkw),
                          20),
@@ -252,9 +325,9 @@ def phase_kernels(card: str) -> dict:
     want = kernels.audit_commit_plain(*cargs)
     err = max_abs_err(got, want)
     n_valid = int(want.n_valid.sum())
-    b = bound(nbytes(*cargs) + nbytes(*want), 16 * n_valid)
     results["audit_commit"] = dict(
-        err=err, bound=b, shape=f"H={H} K={K} events={n_valid}",
+        err=err, bound=kernel_bound("audit_commit", cargs, {}, want),
+        shape=f"H={H} K={K} events={n_valid}",
         ms=time_ms(lambda: kernels.audit_commit(*cargs), 200),
         plain_ms=time_ms(lambda: kernels.audit_commit_plain(*cargs), 20),
     )
@@ -319,12 +392,13 @@ def bench_run(card: str, ops, label: str):
 # the loop path: config 2
 # ---------------------------------------------------------------------------
 
-LOOP_KERNELS = ("loop_select", "loop_route", "codel_dequeue", "ring_append")
-
-
 def activity(name: str, args, out) -> int:
-    """How many hosts a captured call worked for: the call phase 6 keeps
-    is the busiest of the window."""
+    """How much work a captured call did: the call phase 6 keeps is the
+    busiest of the window."""
+    if name == "extract_slots":
+        return int((out != args[0].shape[0]).sum())  # rows extracted
+    if name == "audit_commit":
+        return int(out.n_valid.sum())  # events committed
     if name == "loop_select":
         return int(out.valid.sum())
     if name == "loop_route":
@@ -335,7 +409,7 @@ def activity(name: str, args, out) -> int:
 
 
 def capture_ops(best: dict) -> kernels.WindowOps:
-    """The kernel wrappers, keeping for each loop-path kernel the
+    """The kernel wrappers, keeping for each kernel of the loop path the
     arguments of its busiest call (``best[name] = (score, args, kw)``)."""
     def wrap(name, fn):
         def call(*args, **kw):
@@ -346,29 +420,7 @@ def capture_ops(best: dict) -> kernels.WindowOps:
             return out
         return call
     return kernels.KERNEL_OPS._replace(**{
-        n: wrap(n, getattr(kernels.KERNEL_OPS, n)) for n in LOOP_KERNELS})
-
-
-def loop_bytes(name: str, args, kw, out) -> int:
-    """The bytes each kernel must move on this call's data: every input
-    it needs read once, every output written once."""
-    if name == "loop_select":
-        d_t, d_s, d_q, d_k, d_p = args[:5]
-        H, B, PP = d_t.shape[0], args[6].shape[1], d_p.shape[-1]
-        cell = 20 + 8 * PP  # time, src, seq, kind, packed payload
-        bulk = int((out.take_t[:, 1:] != NEVER).sum())
-        per_host = 4 * 4 + B * 20 + cell  # ptr, count, gate, gid; inbox
-        return H * per_host + (H + bulk) * cell + nbytes(*out)
-    if name == "loop_route":
-        boxes = args[10]
-        return nbytes(*args[:10], *boxes) + nbytes(*out.boxes, *out[1:])
-    if name == "codel_dequeue":
-        H, Q, P = args[0].shape
-        pops = int((out.q_head - args[3]).sum())
-        state = nbytes(*args[3:])  # per-host CoDel state, now, mask
-        return state + pops * 16 + H * (4 * P + 4) + nbytes(*out)
-    return nbytes(*(a for a in args if a is not None)) + nbytes(
-        *(o for o in out if o is not None))
+        n: wrap(n, getattr(kernels.KERNEL_OPS, n)) for n in LOOP_PATH})
 
 
 def synthetic_router(H: int, Q: int, P: int, device, seed: int = 11):
@@ -400,8 +452,8 @@ def synthetic_router(H: int, Q: int, P: int, device, seed: int = 11):
 
 
 def phase_loop_kernels(card: str) -> dict:
-    """Phase 6: the loop path's kernels on a real config-2 window, and
-    the flood's device time by kernel over a few windows."""
+    """Phase 6: every kernel of the loop path on a real config-2 window,
+    and the flood's device time by kernel over a few windows."""
     sim = build_simulation(CONFIG2)
     sim.run(until=2_000_000_000)
     best: dict = {}
@@ -411,9 +463,9 @@ def phase_loop_kernels(card: str) -> dict:
     sim.step_loop(mn, we, occ)
     print(f"[{card}] phase 6 inputs: the busiest call of each kernel in "
           f"the config-2 window [{mn}, {we}), H={sim.num_hosts} "
-          f"K={sim.K} B={sim.B} O={sim.O}: "
+          f"K={sim.K} (Kc={sim.K + 1}) B={sim.B} O={sim.O}: "
           + json.dumps({k: v[0] for k, v in best.items()}), flush=True)
-    missing = [k for k in LOOP_KERNELS if k not in best]
+    missing = [k for k in LOOP_PATH if k not in best]
     if missing:
         fail(f"phase 6: the window did not call {missing}")
     H, Q, P = sim.num_hosts, 16, 12
@@ -429,6 +481,8 @@ def phase_loop_kernels(card: str) -> dict:
         if name == "loop_route":
             err = max(max_abs_err(got.boxes, want.boxes),
                       max_abs_err(got[1:], want[1:]))
+        elif name == "extract_slots":
+            err = max_abs_err([got], [want])
         else:
             err = max_abs_err(got, want)
         extra = ""
@@ -437,7 +491,9 @@ def phase_loop_kernels(card: str) -> dict:
             extra = f" codel_drops={n}"
             if "drop mode" in label and n == 0:
                 fail("phase 6: the synthetic drop-mode state dropped none")
-        b = bound(loop_bytes(name, args, kw, want), 0)
+        if name == "extract_slots":
+            extra = f" N={args[0].shape[0]} Kc={args[2]}"
+        b = kernel_bound(name, args, kw, want)
         results[label] = dict(
             err=err, bound=b,
             ms=time_ms(lambda: kern(*args, **kw), 200),
@@ -450,20 +506,32 @@ def phase_loop_kernels(card: str) -> dict:
         if err != 0:
             fail(f"{label} disagrees with its plain version on the card")
 
-    # where a flood window's time goes: 10 windows timed, then the next
-    # 10 under the profiler (whose own cost inflates their wall)
+    # where a flood window's time goes: the same 10 windows run twice from
+    # one saved state (the state is never written into, so a copy of its
+    # containers restores it), first timed alone, then under the
+    # profiler; the device's busy time is the profiled run's kernels and
+    # copies, set against both runs' wall
     sim.ops = kernels.KERNEL_OPS
     from torch.profiler import ProfilerActivity, profile
 
+    saved = sim.state.detached_copy()
+    first = sim._frontier(sim.stop_time)[0]
+    until = first + 10 * sim.runahead
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run(until=mn + 11 * sim.runahead)
+    sim.run(until=until)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    chain = sim.audit_chain()
+    sim.state = saved
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sim.run(until=mn + 21 * sim.runahead)
+        t0 = time.perf_counter()
+        sim.run(until=until)
         torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    if sim.audit_chain() != chain:
+        fail("phase 6: the rerun of the profiled windows differs")
     rows = []  # kernels only: an operator's device time is its kernels'
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
@@ -472,10 +540,12 @@ def phase_loop_kernels(card: str) -> dict:
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    print(f"[{card}] phase 6 10 flood windows: wall_s={wall:.4f}; the next "
-          f"10 profiled: kernel time device_busy_s={busy_s:.4f}, "
-          f"busy_share={busy_s / wall:.4f} of the unprofiled wall; "
-          f"top device time (us, launches): " + json.dumps(
+    print(f"[{card}] phase 6 the flood windows [{first}, {until}): wall_s="
+          f"{wall:.4f} alone, {wall_prof:.4f} under the profiler; device "
+          f"busy (kernels and copies) {busy_s:.4f} s: busy_share="
+          f"{busy_s / wall:.4f} of the wall alone, "
+          f"{busy_s / wall_prof:.4f} of the profiled wall; top device "
+          f"time (us, launches): " + json.dumps(
               [[k[:60], round(us, 1), n] for us, k, n in rows[:12]]),
           flush=True)
     kernels.reset_launches()
@@ -573,9 +643,6 @@ def main() -> None:
     del psim, snap, psnap
 
     loop_results = phase_loop_kernels(card)
-    for label, r in loop_results.items():
-        if " " not in label:
-            results[label] = r
 
     sim, windows2, c2, chain2, launches2 = flood_run(
         card, kernels.KERNEL_OPS, "phase 7 config 2 through the kernels")
@@ -610,21 +677,27 @@ def main() -> None:
     print(f"[{card}] phase 8 plain run equal to phase 7: counters, chain, "
           f"{len(snap)} state arrays (pool, host, obs, subs)", flush=True)
 
+    # one entry for each kernel on each main path: its launches in that
+    # path's run, and its times and bound on that path's inputs
+    paths = (("phold", PHOLD_PATH, launches, results),
+             ("config2", LOOP_PATH, launches2, loop_results))
     line = {"kernels": [
         {
             "name": k.name,
+            "path": path,
             "route": "cuda",
             "source": f"shadow_tpu_torch/csrc/{k.name}.cu",
             "replaces": REPLACES[k.name],
-            "launches": launches[k.name] + launches2[k.name],
-            "max_abs_err": results[k.name]["err"],
-            "ms": results[k.name]["ms"],
-            "plain_ms": results[k.name]["plain_ms"],
-            "bound_ms": results[k.name]["bound"][0],
-            "bound_by": results[k.name]["bound"][1],
+            "launches": counts[k.name],
+            "max_abs_err": res[k.name]["err"],
+            "ms": res[k.name]["ms"],
+            "plain_ms": res[k.name]["plain_ms"],
+            "bound_ms": res[k.name]["bound"][0],
+            "bound_by": res[k.name]["bound"][1],
             "library_ms": None,
         }
         for k in kernels.KERNELS
+        for path, on_path, counts, res in paths if k.name in on_path
     ]}
     print(json.dumps(line))
     print(card)

@@ -10,8 +10,8 @@
 // host_events += count, and host_last_t and done_t take the max time where
 // the host committed anything.
 //
-// Bound: bytes. It reads 16 bytes a cell (time, src, kind) and 40 bytes a
-// host, and writes 40 bytes a host. Design: one thread per host running
+// Bound: bytes. It reads every cell's time, the src and kind of each
+// committed cell and 36 bytes a host, and writes 40 bytes a host. Design: one thread per host running
 // the chain sequentially, as the fold is order-dependent along k; hosts
 // are independent. Unsigned 64-bit arithmetic gives the two's-complement
 // wrap of the JAX package's int64 multiplies and its logical shift.

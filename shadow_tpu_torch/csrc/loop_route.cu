@@ -16,11 +16,13 @@
 // stats[h] = (records emitted, self emissions deferred for a full inbox,
 // outbox drops).
 //
-// Bound: bytes. The function reads the records and both boxes and writes
-// both boxes. Design: one thread per host, which copies its box rows and
-// applies its records in order; hosts are independent. The copy keeps the
-// function out of place, as the engine's state is; the rows are short
-// (B, O <= 64 slots), so a thread's reads stay within a few cache lines.
+// Bound: bytes. The function reads the records, each active host's inbox
+// times, outbox count and deferred key, and writes one box cell per
+// placed record. Design: one thread per host, which copies its box rows
+// and applies its records in order; hosts are independent. The copy
+// keeps the kernel out of place, as the engine's state is, and is not
+// part of the bound; the rows are short (B, O <= 64 slots), so a
+// thread's reads stay within a few cache lines.
 
 #include <cuda_runtime.h>
 

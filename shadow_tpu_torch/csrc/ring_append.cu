@@ -11,13 +11,14 @@
 // where the ring has one) and the tail advances; total_size (where given)
 // adds the packet's wire size (length word + 28 or 40 header bytes).
 //
-// Bound: bytes. The function is out of place, like the engine's state: it
-// writes a full copy of the ring planes, which dominates (the config-2
-// router ring is H x 16 x 12 words). Design: a block of 256 threads owns
-// 32 hosts, whose ring rows are contiguous: the threads copy them with
-// coalesced loads and stores, synchronise, then one thread per host
-// writes its appended slot. Appending in place would move a few bytes a
-// host instead; that is later work.
+// Bound: bytes. The function needs the mask, head and tail of every host
+// and reads and writes one slot per appended host. This kernel is out of
+// place, like the engine's state: it also writes a full copy of the ring
+// planes, which dominates its time (the config-2 NIC ring is H x 64 x 12
+// words) and is not part of the bound. Design: a block of 256 threads
+// owns 32 hosts, whose ring rows are contiguous: the threads copy them
+// with coalesced loads and stores, synchronise, then one thread per host
+// writes its appended slot. Appending in place is later work.
 
 #include <cuda_runtime.h>
 
