@@ -2,17 +2,19 @@
 
     python3 chip_smoke.py
 
-Two main paths run through the port's entry points (``build_simulation``
+Three main paths run through the port's entry points (``build_simulation``
 or ``build_phold_flagship`` → ``Simulation.run`` → ``counters()`` /
 ``audit_chain()``): the PHOLD flagship at the bench shape (16384 hosts,
-msgload 8, stop 10 s, runtime 10 s, seed 42) on the matrix path, and
+msgload 8, stop 10 s, runtime 10 s, seed 42) on the matrix path;
 BASELINE config 2 (``bench.py:stage_udp_flood``: 10,240 hosts flooding
 1,280 servers over the UDP stack, stop 4 s, seed 7) on the micro-step
-loop path. Phases, each printing its numbers beside the card's name and
-power limit:
+loop path; and BASELINE config 3 (``bench.py:stage_tcp_bulk``: 8,960
+clients each pushing 64 KiB over TCP to 1,280 servers, stop 4 s, seed 7)
+on the loop path through the TCP stack. Phases, each printing its numbers
+beside the card's name and power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the seven CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
+2. build the eleven CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
    (one process per source, all at once) and print ptxas's register and
    shared-memory report;
 3. each kernel at the bench shape's widths, on inputs taken from a real
@@ -25,34 +27,52 @@ power limit:
    reference values below, and each kernel must launch once a window;
 5. the same run with the plain versions on the card: counters, chain and
    the whole final state equal to phase 4's;
-6. every kernel of the loop path (extract_slots at Kc = 13, audit_commit
-   on the micro-steps' taken events, loop_select, loop_route,
-   codel_dequeue, ring_append) at config 2's widths, on inputs captured
-   from a real window of the flood run (each kernel's busiest call), plus
+6. every kernel of config 2's path (extract_slots at Kc = 13,
+   audit_commit on the micro-steps' taken events, loop_select,
+   loop_route, ring_append) at its widths, on inputs captured from a real
+   window of the flood run (each kernel's busiest call), plus
    codel_dequeue on a synthetic full-width router state in drop mode with
-   stale packets: each equal bit for bit to its plain version, timed
-   beside its bound; and a few flood windows run twice from one state,
-   alone and under the profiler (device time by kernel and the device's
-   busy share of the same windows);
+   stale packets (the flood never queues at a router, so its run never
+   calls it): each equal bit for bit to its plain version, timed beside
+   its bound; and a few flood windows run twice from one state, alone and
+   under the profiler (device time by kernel and the device's busy share
+   of the same windows);
 7. config 2 from t = 0 to the stop in one ``run()`` through the kernels,
    launch counts set to 0 just before it and read just after: counters
    and audit chain equal to the JAX package's reference values below, and
    every kernel of the path launched;
 8. the same run with the plain versions on the card: counters, chain and
-   every state array equal to phase 7's.
+   every state array equal to phase 7's;
+9. every kernel of config 3's path (the loop path's six at Kc = 17,
+   B = 8, O = 32 and no bulk batch, and the four TCP kernels tcp_demux,
+   tcp_ack, tcp_reorder and tcp_out) on its busiest call over 300
+   micro-steps of the transfers, with the number of calls that took each
+   TCP branch, plus tcp_ack and tcp_reorder on synthetic full-width lossy
+   tables that take every branch: each equal bit for bit to its plain
+   version, timed beside its bound; and a few transfer windows run alone
+   and under the profiler;
+10. config 3 at 10,240 hosts from t = 0 to the stop in one ``run()``
+    through the kernels, launch counts set to 0 just before it and read
+    just after: every client's 64 KiB acked, the servers' bytes received
+    summing to 8,960 × 64 KiB, every kernel of the path launched; the
+    counters, TCP counters and audit chain equal to the JAX package's
+    reference values below;
+11. config 3 with the plain versions on the card: counters, chain and
+    every state array equal to phase 10's.
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
 The line has one entry for each kernel on each main path (``path``
-"phold" or "config2"): its ``launches`` in that path's run (phase 4 or
-7), and its times and bound on that path's inputs (phase 3 or 6). Any
-failure raises, exits non-zero and prints no ok line; with no card, or
-without the rest of the repository beside it, it fails at once.
+"phold", "config2" or "config3"): its ``launches`` in that path's run
+(phase 4, 7 or 10), and its times and bound on that path's inputs (phase
+3, 6 or 9). Any failure raises, exits non-zero and prints no ok line;
+with no card, or without the rest of the repository beside it, it fails
+at once.
 
 The reference values come from the JAX package on a CPU (README.md, "The
 PyTorch/CUDA port", gives the commands):
 ``build_phold_flagship(16384, msgload=8, stop_s=10, runtime_s=10)`` then
-``sim.run()``, and config 2 (``CONFIG2`` below) through
-``shadow_tpu.sim.build_simulation`` then ``sim.run()``.
+``sim.run()``, and configs 2 and 3 (``CONFIG2`` and ``CONFIG3`` below)
+through ``shadow_tpu.sim.build_simulation`` then ``sim.run()``.
 """
 
 from __future__ import annotations
@@ -115,10 +135,78 @@ REF2_COUNTERS = {
     "inbox_overflow_deferred": 0,
     "bulk_contract_violations": 0,
 }
+
+
+def config3(num_hosts: int = 10240) -> dict:
+    """BASELINE config 3, as bench.py:stage_tcp_bulk builds it: one host in
+    eight a server, every client pushing 64 KiB over TCP."""
+    n_servers = num_hosts // 8
+    return {
+        "general": {"stop_time": 4, "seed": 7},
+        "network": {"graph": {"type": "gml", "inline": (
+            'graph [\n'
+            '  node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]\n'
+            '  edge [ source 0 target 0 latency "10 ms" packet_loss 0.0005 ]\n'
+            ']\n')}},
+        "experimental": {"event_capacity": 1 << 18,
+                         "events_per_host_per_window": 16,
+                         "outbox_slots": 32, "router_queue_slots": 16,
+                         "inbox_slots": 8},
+        "hosts": {
+            "server": {"quantity": n_servers, "app_model": "tcp_bulk",
+                       "app_options": {"role": "server"}},
+            "client": {"quantity": num_hosts - n_servers,
+                       "app_model": "tcp_bulk",
+                       "app_options": {"total": "64 KiB"}},
+        },
+    }
+
+
+CONFIG3 = config3()
+TCP_TOTAL = 64 * 1024
+# the TCP table's counters, and the sums the run is checked by
+TCP_COUNTERS = ("retransmits", "timeouts", "rtx_fast", "rtx_sack",
+                "rtx_walk", "drop_no_socket", "drop_ooo", "accept_overflow")
+
+# The JAX package's config-3 values at full width (PERF.md section 2):
+# build_simulation(config3()) then sim.run() on a CPU
+REF3 = {
+    "counters": {
+        "events_committed": 1_568_970, "events_emitted": 1_568_970,
+        "packets_sent": 1_002_456, "packets_delivered": 951_538,
+        "packets_dropped_loss": 230, "bytes_sent": 702_354_596,
+        "bytes_delivered": 587_944_172, "micro_steps": 1_970,
+        "outbox_stall_deferred": 907_826, "pool_overflow_dropped": 0,
+        "outbox_overflow_dropped": 0, "inbox_overflow_deferred": 0,
+        "bulk_contract_violations": 0,
+    },
+    "tcp": {
+        "retransmits": 54_062, "timeouts": 2_565, "rtx_fast": 700,
+        "rtx_sack": 163, "rtx_walk": 50_634, "drop_no_socket": 0,
+        "drop_ooo": 790, "accept_overflow": 0,
+        "sum_bytes_acked": 587_202_560, "sum_bytes_received": 587_202_560,
+    },
+    "audit_chain": 0xEDFDB671D3631E58,
+}
+# phase 9 captures windows where the transfers run (the clients open at
+# 1 s; the first losses show within a few 20 ms round trips)
+PHASE9_FROM = 1_040_000_000
+PHASE9_STEPS = 300
+# phase 9 profiles this much simulated time (a config-3 micro-step
+# launches thousands of kernels)
+PHASE9_PROFILE_NS = 2_000_000
+# phase 11's stop: None runs the plain versions over the whole run
+PHASE11_UNTIL = None
+
 # the kernels of each main path
 PHOLD_PATH = ("extract_slots", "phold_forward", "audit_commit")
 LOOP_PATH = ("extract_slots", "audit_commit", "loop_select", "loop_route",
              "codel_dequeue", "ring_append")
+# config 2 never queues at a router (1 Gbit, 7 clients a server), so no
+# host takes a receive-pump event and codel_dequeue's handler never runs
+CONFIG2_PATH = tuple(k for k in LOOP_PATH if k != "codel_dequeue")
+TCP_PATH = ("tcp_demux", "tcp_ack", "tcp_reorder", "tcp_out")
+CONFIG3_PATH = LOOP_PATH + TCP_PATH
 
 # H100 SXM published peaks: HBM bytes/s, and
 # float32 outside the tensor cores, the nearest published rate for the
@@ -138,6 +226,10 @@ REPLACES = {
     "loop_route": "shadow_tpu/core/engine.py:1041",
     "codel_dequeue": "shadow_tpu/net/codel.py:176",
     "ring_append": "shadow_tpu/net/codel.py:88",
+    "tcp_demux": "shadow_tpu/net/tcp.py:242",
+    "tcp_ack": "shadow_tpu/net/tcp.py:779",
+    "tcp_reorder": "shadow_tpu/net/tcp.py:1001",
+    "tcp_out": "shadow_tpu/net/tcp.py:1132",
 }
 
 
@@ -263,6 +355,35 @@ def kernel_bound(name: str, args, kw, out):
         slot = 4 * P + 4 + (0 if q_ts is None else 8)
         reads = nbytes(mask, q_head, q_tail, total) + n * slot
         writes = n * slot + nbytes(out.tail, out.ok, out.total_size)
+        return bound(reads + writes, 0)
+    if name == "tcp_demux":
+        # every socket's row decides the slot of every host
+        return bound(nbytes(*args) + nbytes(*out), 0)
+    if name in ("tcp_ack", "tcp_out"):
+        n_in = 9 if name == "tcp_ack" else 3
+        mask, fields = args[0], args[n_in:]
+        names_out = kernels.ACK_OUT if name == "tcp_ack" else kernels.OUT_OUT
+        H = mask.shape[0]
+        n = int(mask.sum())
+        # per host: its inputs and the slot's value of each field read;
+        # the slot of each field written for the masked hosts
+        reads = nbytes(*args[:n_in]) + H * sum(f.element_size()
+                                               for f in fields)
+        cell = sum(kernels.TCP_DTYPES[f].itemsize for f in names_out)
+        per_host = out[1:]
+        return bound(reads + n * cell + nbytes(*per_host), 0)
+    if name == "tcp_reorder":
+        mask, ooo_map = args[0], args[6]
+        H, S, W = ooo_map.shape
+        flags = out.flags
+        n_in_order = int(((flags >> kernels.RO_IN_ORDER) & 1).sum())
+        n_board = n_in_order + int(((flags >> kernels.RO_OOO) & 1).sum())
+        # per host: its inputs and the slot's state, rcv_nxt,
+        # bytes_received and board row; the slot's rcv_nxt and
+        # bytes_received where in order, its row where the board changed
+        reads = nbytes(*args[:4]) + H * (4 + 4 + 8 + W)
+        writes = (n_in_order * 12 + n_board * W
+                  + nbytes(out.flags, out.adv, out.sack))
         return bound(reads + writes, 0)
     raise ValueError(name)
 
@@ -405,22 +526,54 @@ def activity(name: str, args, out) -> int:
         return int(args[0].sum())
     if name == "codel_dequeue":
         return int(args[12].sum())
-    return int(args[5].sum())
+    if name == "tcp_reorder":
+        return int((out.flags != 0).sum())  # hosts whose segment had data
+    if name in ("tcp_ack", "tcp_out"):
+        return int(args[0].sum())  # hosts handled
+    return int(args[5].sum())  # ring_append, tcp_demux: the mask
 
 
-def capture_ops(best: dict) -> kernels.WindowOps:
-    """The kernel wrappers, keeping for each kernel of the loop path the
-    arguments of its busiest call (``best[name] = (score, args, kw)``)."""
+# the decision bits of the TCP kernels that phase 9 counts calls by
+K = kernels
+BRANCHES = {
+    "tcp_ack": {"dup_ack": K.ACK_DUP, "fast_rtx": K.ACK_TRIGGER_FR,
+                "partial_rtx": K.ACK_PARTIAL, "sack_rtx": K.ACK_SACK_RTX,
+                "new_ack": K.ACK_NEW_ACKED, "data_rtx": K.ACK_DATA_RTX,
+                "fin_rtx": K.ACK_FIN_RTX, "fin_acked_free": K.ACK_FREE,
+                "time_wait": K.ACK_TW_ENTER},
+    "tcp_reorder": {"in_order": K.RO_IN_ORDER, "absorb": K.RO_ABSORB,
+                    "ooo_flag": K.RO_OOO, "drop": K.RO_DROP},
+    "tcp_out": {"send_data": K.OUT_SEND_DATA, "send_fin": K.OUT_SEND_FIN,
+                "sack_skip": K.OUT_SKIP, "rtx_walk": K.OUT_RTX},
+}
+
+
+def branch_calls(name: str, flags: torch.Tensor) -> dict:
+    """{branch: 1 if any host of this call took it}."""
+    any_bit = torch.stack([((flags >> b) & 1).any()
+                           for b in BRANCHES[name].values()]).tolist()
+    return dict(zip(BRANCHES[name], map(int, any_bit)))
+
+
+def capture_ops(best: dict, names=LOOP_PATH,
+                branches: dict | None = None) -> kernels.WindowOps:
+    """The kernel wrappers, keeping for each kernel of ``names`` the
+    arguments of its busiest call (``best[name] = (score, args, kw)``),
+    and counting in ``branches`` the calls that took each TCP branch."""
     def wrap(name, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
             score = activity(name, args, out)
             if name not in best or score > best[name][0]:
                 best[name] = (score, args, kw)
+            if branches is not None and name in BRANCHES:
+                for b, n in branch_calls(name, out.flags).items():
+                    key = f"{name}.{b}"
+                    branches[key] = branches.get(key, 0) + n
             return out
         return call
     return kernels.KERNEL_OPS._replace(**{
-        n: wrap(n, getattr(kernels.KERNEL_OPS, n)) for n in LOOP_PATH})
+        n: wrap(n, getattr(kernels.KERNEL_OPS, n)) for n in names})
 
 
 def synthetic_router(H: int, Q: int, P: int, device, seed: int = 11):
@@ -451,6 +604,226 @@ def synthetic_router(H: int, Q: int, P: int, device, seed: int = 11):
     return [torch.as_tensor(c, device=device) for c in cols]
 
 
+MSS = 1460
+
+
+def _wrap32(a) -> np.ndarray:
+    """int64 values as int32 with two's-complement wraparound."""
+    return (np.asarray(a, np.int64) & 0xFFFFFFFF).astype(np.uint32).view(
+        np.int32)
+
+
+def synthetic_tcp_ack(H: int, S: int, device, seed: int = 13):
+    """Arguments of tcp_ack on a full-width lossy table (the branches a
+    0.0005-loss run takes rarely or never): sequence numbers across the
+    int32 wrap, duplicate, partial, full and out-of-window ACKs, SACK
+    bitmaps with holes, fast recovery, FINs acked in every closing state,
+    RTT samples with negative differences, and masked-off hosts with
+    slots outside [0, S)."""
+    rs = np.random.default_rng(seed)
+    hs = (H, S)
+    una = rs.integers(-2**31, 2**31, hs)
+    nxt = una + rs.integers(0, 40, hs) * MSS
+    smax = nxt + rs.integers(0, 4, hs) * MSS * (rs.random(hs) < 0.3)
+    fin_sent = rs.random(hs) < 0.25
+    buf = np.where(fin_sent, smax - 1,
+                   smax + rs.integers(0, 30, hs) * MSS
+                   + rs.integers(0, MSS, hs))
+    now = 2_000_000_000 + rs.integers(0, 100_000_000, H)
+    sack = rs.integers(0, 2**32, hs) & np.where(
+        rs.random(hs) < 0.5, 0, rs.integers(0, 2**32, hs))
+    fields = {
+        "state": rs.choice([3, 4, 5, 6, 7, 9, 10], size=hs,
+                           p=[.05, .55, .1, .05, .1, .05, .1]),
+        "snd_una": una, "snd_nxt": nxt, "snd_max": smax,
+        "snd_wnd": rs.integers(0, 1 << 20, hs), "snd_buf_end": buf,
+        "fin_seq": np.where(fin_sent, buf, rs.integers(-2**31, 2**31, hs)),
+        "fin_sent": fin_sent,
+        "cwnd": rs.integers(MSS, 60 * MSS, hs),
+        "ssthresh": np.where(rs.random(hs) < 0.5, 1 << 30,
+                             rs.integers(2 * MSS, 40 * MSS, hs)),
+        "dup_acks": rs.integers(0, 4, hs),
+        "fast_recovery": rs.random(hs) < 0.3,
+        "recover": una + rs.integers(0, 45, hs) * MSS,
+        "sack_bits": sack, "rtx_high": una + rs.integers(-3, 12, hs) * MSS,
+        "srtt": np.where(rs.random(hs) < 0.3, 0,
+                         rs.integers(1, 200_000_000, hs)),
+        "rttvar": rs.integers(0, 100_000_000, hs),
+        "rto": rs.integers(200_000_000, 3_000_000_000, hs),
+        "rtt_armed": rs.random(hs) < 0.6,
+        "rtt_seq": una + rs.integers(-2, 40, hs) * MSS,
+        "rtt_start": now[:, None] - rs.integers(-1_000_000, 300_000_000, hs),
+        "rtx_armed": rs.random(hs) < 0.7,
+        "rtx_expire": rs.integers(0, 10**10, hs),
+        "bytes_acked": rs.integers(0, 10**6, hs),
+    }
+    mask = rs.random(H) < 0.85
+    slot = np.where(~mask & (rs.random(H) < 0.3), rs.integers(-3, S + 3, H),
+                    rs.integers(0, S, H))
+    rows, col = np.arange(H), np.clip(slot, 0, S - 1)
+    u, smx = una[rows, col], smax[rows, col]
+    pick = rs.integers(0, 6, H)
+    seg_ack = np.select(
+        [pick == 0, pick == 1, pick == 2, pick == 3, pick == 4],
+        [u, u + np.minimum(rs.integers(1, 45, H) * MSS, smx - u), smx,
+         smx + rs.integers(1, 5, H) * MSS, u - rs.integers(1, 5, H) * MSS],
+        rs.integers(-2**31, 2**31, H))
+    flags = rs.choice([0x10, 0x11, 0x12, 0x00], size=H, p=[.85, .05, .05, .05])
+    seg_len = np.where(rs.random(H) < 0.75, 0,
+                       np.where(rs.random(H) < 0.8, MSS,
+                                rs.integers(1, MSS, H)))
+    st = np.where(rs.random(H) < 0.1, 3, fields["state"][rows, col])
+    i32 = torch.int32
+
+    def t(a, dt=i32):
+        if dt == i32:
+            a = _wrap32(a)
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    per_host = (t(mask, torch.bool), t(slot), t(flags), t(seg_ack),
+                t(seg_len), t(rs.integers(0, 1 << 20, H)),
+                t(rs.integers(0, 2**32, H)), t(st), t(now, torch.int64))
+    return per_host + tuple(t(fields[n], kernels.TCP_DTYPES[n])
+                            for n in kernels.ACK_IN), {"mss": MSS}
+
+
+def synthetic_tcp_reorder(H: int, S: int, W: int, device, seed: int = 17):
+    """Arguments of tcp_reorder on a full-width table with boards half
+    full: in-order segments that absorb runs of held chunks, short final
+    segments, aligned and unaligned out-of-order segments inside and
+    beyond the board, old segments, and sockets that cannot receive."""
+    rs = np.random.default_rng(seed)
+    hs = (H, S)
+    rcv_nxt = rs.integers(-2**31, 2**31, hs)
+    dens = rs.choice([0.0, 0.3, 0.8], size=hs)
+    board = rs.random((H, S, W)) < dens[..., None]
+    run = rs.integers(0, 6, hs)
+    board[..., 1:] |= np.arange(1, W)[None, None, :] <= run[..., None]
+    board[..., 0] = False
+    mask = rs.random(H) < 0.85
+    slot = np.where(~mask & (rs.random(H) < 0.3), rs.integers(-3, S + 3, H),
+                    rs.integers(0, S, H))
+    rn = rcv_nxt[np.arange(H), np.clip(slot, 0, S - 1)]
+    pick = rs.integers(0, 5, H)
+    seg_seq = np.select(
+        [pick <= 1, pick == 2, pick == 3],
+        [rn, rn + rs.integers(1, W + 8, H) * MSS,
+         rn + rs.integers(1, W * MSS, H)],
+        rn - rs.integers(1, 10, H) * MSS)
+    seg_len = np.where(rs.random(H) < 0.75, MSS,
+                       np.where(rs.random(H) < 0.6, rs.integers(1, MSS, H),
+                                0))
+    state = rs.choice([4, 5, 6, 9, 10], size=hs, p=[.6, .1, .1, .1, .1])
+    i32 = torch.int32
+
+    def t(a, dt=i32):
+        if dt == i32:
+            a = _wrap32(a)
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    return (t(mask, torch.bool), t(slot), t(seg_seq), t(seg_len), t(state),
+            t(rcv_nxt), torch.as_tensor(board, device=device),
+            t(rs.integers(0, 10**7, hs), torch.int64)), {"mss": MSS}
+
+
+def profile_windows(card: str, sim, label: str, span: int) -> None:
+    """Where a window's time goes: the windows of the next ``span`` ns run
+    twice from one saved state (the state is never written into, so a
+    copy of its containers restores it), first timed alone, then under
+    the profiler; the device's busy time is the profiled run's kernels
+    and copies, set against both runs' wall. The profiler's summary
+    costs time in proportion to the launches traced, so the span stays
+    short."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = sim.state.detached_copy()
+    first = sim._frontier(sim.stop_time)[0]
+    until = first + span
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(until=until)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chain = sim.audit_chain()
+    steps = sim.counters()["micro_steps"] - int(saved.counters.micro_steps)
+    sim.state = saved
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(until=until)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    if sim.audit_chain() != chain:
+        fail(f"{label}: the rerun of the profiled windows differs")
+    rows = []  # kernels only: an operator's device time is its kernels'
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    print(f"[{card}] {label} [{first}, {until}): micro_steps={steps} "
+          f"wall_s={wall:.4f} alone, {wall_prof:.4f} under the profiler; "
+          f"device busy (kernels and copies) {busy_s:.4f} s: busy_share="
+          f"{busy_s / wall:.4f} of the wall alone, "
+          f"{busy_s / wall_prof:.4f} of the profiled wall; top device "
+          f"time (us, launches): " + json.dumps(
+              [[k[:60], round(us, 1), n] for us, k, n in rows[:12]]),
+          flush=True)
+
+
+def compare_calls(card: str, phase: str, calls: dict) -> dict:
+    """Each captured call ({label: (score, args, kw)}, the kernel's name
+    first in the label) through its kernel and its plain version on the
+    same inputs: equal bit for bit, timed with CUDA events, with its
+    bound."""
+    results = {}
+    for label, (_, args, kw) in calls.items():
+        name = label.split()[0]
+        kern = getattr(kernels, name)
+        plain = getattr(kernels, f"{name}_plain")
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if name == "loop_route":
+            err = max(max_abs_err(got.boxes, want.boxes),
+                      max_abs_err(got[1:], want[1:]))
+        elif name == "extract_slots":
+            err = max_abs_err([got], [want])
+        elif name in ("tcp_ack", "tcp_out"):
+            err = max(max_abs_err(got.fields, want.fields),
+                      max_abs_err(got[1:], want[1:]))
+        else:
+            err = max_abs_err(got, want)
+        extra = ""
+        if name == "codel_dequeue":
+            n = int(want.dropped.sum())
+            extra = f" codel_drops={n}"
+            if "drop mode" in label and n == 0:
+                fail(f"{phase}: the synthetic drop-mode state dropped none")
+        if name == "extract_slots":
+            extra = f" N={args[0].shape[0]} Kc={args[2]}"
+        if name in BRANCHES:
+            hosts = {b: int(((want.flags >> bit) & 1).sum())
+                     for b, bit in BRANCHES[name].items()}
+            extra = f" hosts_by_branch={json.dumps(hosts)}"
+            if "synthetic" in label and not all(hosts.values()):
+                fail(f"{phase}: {label} misses a branch: {hosts}")
+        b = kernel_bound(name, args, kw, want)
+        results[label] = dict(
+            err=err, bound=b,
+            ms=time_ms(lambda: kern(*args, **kw), 200),
+            plain_ms=time_ms(lambda: plain(*args, **kw), 20),
+        )
+        r = results[label]
+        print(f"[{card}] {phase} {label}: max_abs_err={err}{extra} "
+              f"kernel_ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"bound_ms={b[0]:.6f} ({b[1]})", flush=True)
+        if err != 0:
+            fail(f"{label} disagrees with its plain version on the card")
+    return results
+
+
 def phase_loop_kernels(card: str) -> dict:
     """Phase 6: every kernel of the loop path on a real config-2 window,
     and the flood's device time by kernel over a few windows."""
@@ -465,89 +838,18 @@ def phase_loop_kernels(card: str) -> dict:
           f"the config-2 window [{mn}, {we}), H={sim.num_hosts} "
           f"K={sim.K} (Kc={sim.K + 1}) B={sim.B} O={sim.O}: "
           + json.dumps({k: v[0] for k, v in best.items()}), flush=True)
-    missing = [k for k in LOOP_PATH if k not in best]
+    missing = [k for k in CONFIG2_PATH if k not in best]
     if missing:
         fail(f"phase 6: the window did not call {missing}")
     H, Q, P = sim.num_hosts, 16, 12
     best["codel_dequeue (drop mode)"] = (
         0, synthetic_router(H, Q, P, sim.device), {"aqm": True})
-    results = {}
-    for label, (_, args, kw) in best.items():
-        name = label.split()[0]
-        kern = getattr(kernels, name)
-        plain = getattr(kernels, f"{name}_plain")
-        got, want = kern(*args, **kw), plain(*args, **kw)
-        torch.cuda.synchronize()
-        if name == "loop_route":
-            err = max(max_abs_err(got.boxes, want.boxes),
-                      max_abs_err(got[1:], want[1:]))
-        elif name == "extract_slots":
-            err = max_abs_err([got], [want])
-        else:
-            err = max_abs_err(got, want)
-        extra = ""
-        if name == "codel_dequeue":
-            n = int(want.dropped.sum())
-            extra = f" codel_drops={n}"
-            if "drop mode" in label and n == 0:
-                fail("phase 6: the synthetic drop-mode state dropped none")
-        if name == "extract_slots":
-            extra = f" N={args[0].shape[0]} Kc={args[2]}"
-        b = kernel_bound(name, args, kw, want)
-        results[label] = dict(
-            err=err, bound=b,
-            ms=time_ms(lambda: kern(*args, **kw), 200),
-            plain_ms=time_ms(lambda: plain(*args, **kw), 20),
-        )
-        r = results[label]
-        print(f"[{card}] phase 6 {label}: max_abs_err={err}{extra} "
-              f"kernel_ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
-              f"bound_ms={b[0]:.6f} ({b[1]})", flush=True)
-        if err != 0:
-            fail(f"{label} disagrees with its plain version on the card")
+    results = compare_calls(card, "phase 6", best)
 
-    # where a flood window's time goes: the same 10 windows run twice from
-    # one saved state (the state is never written into, so a copy of its
-    # containers restores it), first timed alone, then under the
-    # profiler; the device's busy time is the profiled run's kernels and
-    # copies, set against both runs' wall
+    # where a flood window's time goes
     sim.ops = kernels.KERNEL_OPS
-    from torch.profiler import ProfilerActivity, profile
-
-    saved = sim.state.detached_copy()
-    first = sim._frontier(sim.stop_time)[0]
-    until = first + 10 * sim.runahead
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.run(until=until)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    chain = sim.audit_chain()
-    sim.state = saved
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run(until=until)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    if sim.audit_chain() != chain:
-        fail("phase 6: the rerun of the profiled windows differs")
-    rows = []  # kernels only: an operator's device time is its kernels'
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_s = sum(r[0] for r in rows) / 1e6
-    print(f"[{card}] phase 6 the flood windows [{first}, {until}): wall_s="
-          f"{wall:.4f} alone, {wall_prof:.4f} under the profiler; device "
-          f"busy (kernels and copies) {busy_s:.4f} s: busy_share="
-          f"{busy_s / wall:.4f} of the wall alone, "
-          f"{busy_s / wall_prof:.4f} of the profiled wall; top device "
-          f"time (us, launches): " + json.dumps(
-              [[k[:60], round(us, 1), n] for us, k, n in rows[:12]]),
-          flush=True)
+    profile_windows(card, sim, "phase 6 the flood windows",
+                    10 * sim.runahead)
     kernels.reset_launches()
     return results
 
@@ -578,7 +880,131 @@ def flood_run(card: str, ops, label: str):
     return sim, windows, c, chain, launches
 
 
+# ---------------------------------------------------------------------------
+# the TCP stack: config 3
+# ---------------------------------------------------------------------------
+
+def phase_tcp_kernels(card: str) -> dict:
+    """Phase 9: every kernel of config 3's path on its busiest call over
+    the first PHASE9_STEPS micro-steps from PHASE9_FROM, the calls that
+    took each TCP branch, synthetic lossy tables for the branches of
+    tcp_ack and tcp_reorder, and the device time by kernel over a few
+    windows."""
+    t0 = time.perf_counter()
+    sim = build_simulation(CONFIG3)
+    sim.run(until=PHASE9_FROM)
+    best: dict = {}
+    branches: dict = {}
+    sim.ops = capture_ops(best, CONFIG3_PATH, branches)
+    first = sim._frontier(sim.stop_time)[0]
+    steps = windows = 0
+    t1 = time.perf_counter()
+    while steps < PHASE9_STEPS:
+        mn, occ, _ = sim._frontier(sim.stop_time)
+        m0 = sim.counters()["micro_steps"]
+        sim.step_loop(mn, min(mn + sim.runahead, sim.stop_time), occ)
+        steps += sim.counters()["micro_steps"] - m0
+        windows += 1
+    t2 = time.perf_counter()
+    print(f"[{card}] phase 9 inputs: the busiest call of each kernel in "
+          f"{windows} config-3 windows from t={first} ({steps} micro-steps; "
+          f"run-up {t1 - t0:.3f} s, capture {t2 - t1:.3f} s), "
+          f"H={sim.num_hosts} K={sim.K} (Kc={sim.K + 1}) B={sim.B} "
+          f"O={sim.O} G={sim._plan_loop()[2]}: "
+          + json.dumps({k: v[0] for k, v in best.items()})
+          + " calls_by_branch=" + json.dumps(branches), flush=True)
+    missing = [k for k in CONFIG3_PATH if k not in best]
+    if missing:
+        fail(f"phase 9: the windows did not call {missing}")
+    H, S = sim.num_hosts, sim.stack.sockets_per_host
+    W = sim.state.subs["tcp"].ooo_map.shape[2]
+    best["tcp_ack (synthetic lossy)"] = (
+        0, *synthetic_tcp_ack(H, S, sim.device))
+    best["tcp_reorder (synthetic lossy)"] = (
+        0, *synthetic_tcp_reorder(H, S, W, sim.device))
+    results = compare_calls(card, "phase 9", best)
+    t3 = time.perf_counter()
+    sim.ops = kernels.KERNEL_OPS
+    profile_windows(card, sim, "phase 9 the transfer windows",
+                    PHASE9_PROFILE_NS)
+    print(f"[{card}] phase 9 wall_s: capture run {t2 - t0:.3f}, "
+          f"comparisons {t3 - t2:.3f}, profile "
+          f"{time.perf_counter() - t3:.3f}", flush=True)
+    kernels.reset_launches()
+    return results
+
+
+def tcp_run(card: str, cfg: dict, ops, label: str, until=None):
+    """Config 3 (or its cut, ``cfg``) from t = 0 in one ``run()``, launch
+    counts set to 0 just before it and read just after."""
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg)
+    sim.ops = ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    windows = sim.run(until=until)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    c = sim.counters()
+    chain = sim.audit_chain()
+    t = sim.state.subs["tcp"]
+    tc = {k: int(getattr(t, k)) for k in TCP_COUNTERS}
+    tc["sum_bytes_acked"] = int(t.bytes_acked.sum())
+    tc["sum_bytes_received"] = int(t.bytes_received.sum())
+    wall = t2 - t1
+    steps = c["micro_steps"]
+    print(f"[{card}] {label}: hosts={sim.num_hosts} build_s={t1 - t0:.3f} "
+          f"wall_s={wall:.3f} windows={windows} micro_steps={steps} "
+          f"ms_per_micro_step={wall / max(steps, 1) * 1e3:.4f} "
+          f"events_committed={c['events_committed']} "
+          f"events_per_s={c['events_committed'] / wall:.1f} "
+          f"counters={json.dumps(c)} tcp={json.dumps(tc)} "
+          f"audit_chain={chain:#018x} launches={launches} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          flush=True)
+    return sim, windows, c, tc, chain, launches
+
+
+def check_transfers(sim, phase: str) -> None:
+    """Every client's stream acked in full; the servers received all."""
+    t = sim.state.subs["tcp"]
+    role = sim.state.subs["tcp_bulk"]["role"]
+    clients = role == 1
+    acked = t.bytes_acked[clients, 0]
+    if not bool((acked == TCP_TOTAL).all()):
+        fail(f"{phase}: {int((acked != TCP_TOTAL).sum())} clients did not "
+             f"get their {TCP_TOTAL} bytes acked")
+    got = int(t.bytes_received[~clients].sum())
+    want = int(clients.sum()) * TCP_TOTAL
+    if got != want:
+        fail(f"{phase}: the servers received {got} bytes, want {want}")
+
+
+def check_reference(phase: str, c, tc, chain, ref) -> None:
+    """Counters, TCP counters and chain against the JAX package's."""
+    checks = {k: (c[k], v) for k, v in ref["counters"].items()}
+    checks.update({k: (tc[k], v) for k, v in ref["tcp"].items()})
+    checks["audit_chain"] = (chain, ref["audit_chain"])
+    for what, (got, want) in checks.items():
+        if got != want:
+            fail(f"{phase}: {what} = {got}, want {want}")
+
+
+def same_state(a, b) -> list:
+    """The paths where two states' arrays differ (or the path sets)."""
+    na, nb = interop.state_to_numpy(a), interop.state_to_numpy(b)
+    if sorted(na) != sorted(nb):
+        return ["<paths>"]
+    return [k for k in na if not (na[k].dtype == nb[k].dtype
+                                  and na[k].shape == nb[k].shape
+                                  and (na[k] == nb[k]).all())]
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the card")
     card = card_line()
@@ -648,7 +1074,7 @@ def main() -> None:
         card, kernels.KERNEL_OPS, "phase 7 config 2 through the kernels")
     checks = {k: (c2[k], v) for k, v in REF2_COUNTERS.items()}
     checks["audit_chain"] = (chain2, REF2_AUDIT_CHAIN)
-    for k in LOOP_PATH:
+    for k in CONFIG2_PATH:
         if launches2[k] == 0:
             fail(f"phase 7: kernel {k} never launched")
     if launches2["phold_forward"]:
@@ -676,11 +1102,54 @@ def main() -> None:
         fail(f"phase 8: final state differs from phase 7 in {diff}")
     print(f"[{card}] phase 8 plain run equal to phase 7: counters, chain, "
           f"{len(snap)} state arrays (pool, host, obs, subs)", flush=True)
+    del psim, snap, psnap
+
+    t_tcp = time.perf_counter()
+    print(f"[{card}] phases 1-8 wall_s={t_tcp - t_start:.3f}", flush=True)
+    tcp_results = phase_tcp_kernels(card)
+
+    sim, windows3, c3, tc3, chain3, launches3 = tcp_run(
+        card, CONFIG3, kernels.KERNEL_OPS,
+        "phase 10 config 3 through the kernels")
+    for k in CONFIG3_PATH:
+        if launches3[k] == 0:
+            fail(f"phase 10: kernel {k} never launched")
+    if launches3["phold_forward"]:
+        fail("phase 10: phold_forward launched on the loop path")
+    win = sim.obs_snapshot()["win"]
+    if win["loop_dispatches"] != windows3 or win["matrix_dispatches"]:
+        fail(f"phase 10: not every window took the loop path: {win}")
+    check_transfers(sim, "phase 10")
+    check_reference("phase 10", c3, tc3, chain3, REF3)
+    print(f"[{card}] phase 10 config 3 equal to the JAX package's counters, "
+          f"TCP counters and chain; every transfer complete", flush=True)
+
+    psim, pwindows, pc, ptc, pchain, plaunches = tcp_run(
+        card, CONFIG3, kernels.PLAIN_OPS, "phase 11 config 3, plain versions",
+        until=PHASE11_UNTIL)
+    if any(plaunches.values()):
+        fail(f"phase 11: a kernel launched in the plain run: {plaunches}")
+    if PHASE11_UNTIL is not None:
+        del sim
+        sim, windows3, c3, tc3, chain3, _ = tcp_run(
+            card, CONFIG3, kernels.KERNEL_OPS,
+            "phase 11 config 3 through the kernels to the same time",
+            until=PHASE11_UNTIL)
+    if (pwindows, pc, ptc, pchain) != (windows3, c3, tc3, chain3):
+        fail("phase 11: the plain run's windows, counters or chain differ")
+    diff = same_state(sim.state, psim.state)
+    if diff:
+        fail(f"phase 11: final state differs from the kernels' in {diff}")
+    print(f"[{card}] phase 11 plain run equal to the kernels' run: counters, "
+          f"chain, {len(interop.state_paths(sim.state))} state arrays",
+          flush=True)
+    del sim, psim
 
     # one entry for each kernel on each main path: its launches in that
     # path's run, and its times and bound on that path's inputs
     paths = (("phold", PHOLD_PATH, launches, results),
-             ("config2", LOOP_PATH, launches2, loop_results))
+             ("config2", CONFIG2_PATH, launches2, loop_results),
+             ("config3", CONFIG3_PATH, launches3, tcp_results))
     line = {"kernels": [
         {
             "name": k.name,
@@ -699,6 +1168,9 @@ def main() -> None:
         for k in kernels.KERNELS
         for path, on_path, counts, res in paths if k.name in on_path
     ]}
+    t_end = time.perf_counter()
+    print(f"[{card}] phases 9-11 wall_s={t_end - t_tcp:.3f}; whole script "
+          f"wall_s={t_end - t_start:.3f}", flush=True)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

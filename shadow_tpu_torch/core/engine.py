@@ -43,10 +43,11 @@ reached. A micro-step is:
 
 The window ends with one merge of the unconsumed dense cells, the tail and
 the boxes. The driver reads the device once a micro-step: how many hosts
-committed (none ends the window) and which bulk columns any host took.
-Every kind's handler runs each micro-step, as in the JAX package; the
-bulk kind's handler skips a column no host took, as a handler called
-with its mask all off changes nothing.
+committed (none ends the window), which kinds any host took and which
+bulk columns any host took. The JAX package runs every kind's handler
+each micro-step; the port skips a kind (or a bulk column) no host took,
+as a handler called with its mask all off changes nothing: its writes
+and its emissions are all masked.
 
 The sorts are ``torch.sort(stable=True)``; a stable sort by k2 followed by
 a stable sort by k1 is ``lax.sort(num_keys=2, is_stable=True)``. The
@@ -501,6 +502,7 @@ class Simulation:
         ``occupancy`` is the pool's live row count. Returns the events
         committed (host-side count)."""
         kinds, e_by_kind, G_run = self._plan_loop()
+        kinds_t = torch.tensor(kinds, dtype=torch.int32, device=self.device)
         ops, params = self.ops, self.params
         H, K, dev = self.num_hosts, self.K, self.device
         Kc = K + 1
@@ -539,9 +541,13 @@ class Simulation:
             # committed, and which bulk columns any host took
             flags = torch.cat([
                 sel.valid.sum()[None],
+                (sel.valid[:, None]
+                 & (sel.take_k[:, :1] == kinds_t[None, :])).any(dim=0),
                 (sel.take_t[:, 1:] != NEVER).any(dim=0),
             ]).tolist()
-            n_valid, col_on = flags[0], flags[1:]
+            n_valid = flags[0]
+            kind_on = flags[1:1 + len(kinds)]
+            col_on = flags[1 + len(kinds):]
             work = n_valid > 0
             it += 1
             stall = sel.stalled.sum()
@@ -561,7 +567,9 @@ class Simulation:
                     host_last_t=cm.host_last_t, host_digest=cm.host_digest))
             emitter = Emitter(ops)
             head = self._view(sel, 0, P, sel.valid)
-            for k in kinds:
+            for k, on in zip(kinds, kind_on):
+                if not on:
+                    continue
                 ev = head.replace(mask=sel.valid & (head.kind == k))
                 state = self.handlers[k](state, ev, emitter, params)
                 if k == bk:

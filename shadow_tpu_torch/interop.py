@@ -4,11 +4,12 @@
 with paths like ``pool.time``, ``host.rng_counter``,
 ``counters.events_committed``, ``obs.host_digest``, ``rng_keys``,
 ``subs.phold.received`` (an app's dict sub-state) and ``subs.nic.tx_rem``
-(a network sub-state: ``nic``, ``router``, ``udp``); ``state_from_numpy``
-builds a ``SimState`` from such a dict on a device. The JAX package's state has the same field
-names, so a test flattens it by the same paths and the two dicts compare
-key by key. The uint32 fields of the JAX package (``host.rng_counter``,
-``rng_keys``) travel as uint32 and live in int64 on the port's side.
+(a network sub-state: ``nic``, ``router``, ``udp``, ``tcp``);
+``state_from_numpy`` builds a ``SimState`` from such a dict on a device.
+The JAX package's state has the same field names, so a test flattens it
+by the same paths and the two dicts compare key by key. The uint32
+fields of the JAX package (``host.rng_counter``, ``rng_keys``) travel as
+uint32 and live in int64 on the port's side.
 This module imports nothing of JAX.
 """
 
@@ -25,7 +26,7 @@ from shadow_tpu_torch.core.state import (
     HostState,
     SimState,
 )
-from shadow_tpu_torch.net import codel, nic, udp
+from shadow_tpu_torch.net import codel, nic, tcp, udp
 from shadow_tpu_torch.obs.counters import ObsBlock
 
 UINT32_PATHS = ("host.rng_counter", "rng_keys")
@@ -33,7 +34,7 @@ _GROUPS = (("pool", EventPool), ("host", HostState),
            ("counters", Counters), ("obs", ObsBlock))
 # sub-states held as dataclasses, by sub name; every other sub is a dict
 SUB_CLASSES = {nic.SUB: nic.NicState, codel.SUB: codel.RouterState,
-               udp.SUB: udp.UdpState}
+               udp.SUB: udp.UdpState, tcp.SUB: tcp.TcpState}
 
 
 def state_paths(state: SimState) -> list[str]:

@@ -1,7 +1,7 @@
 """The window step's hand-written CUDA kernels, their plain PyTorch
 versions, and the build and ctypes binding.
 
-Seven kernels carry the window step on the card (sources under
+Eleven kernels carry the window step on the card (sources under
 ``csrc/``, one shared library each). The PHOLD matrix path runs the
 first three:
 
@@ -27,6 +27,17 @@ The micro-step loop path and the network stack run the other four:
 * ``ring_append`` (K7): a masked append to a per-host ring, for the
   router's ``codel.enqueue`` and the NIC's ``nic.enqueue_send``.
 
+The TCP stack (``net/tcp.py``) runs four more, each on the one socket
+each host's segment or self-event names, returning its decisions so
+that the emissions stay in the JAX package's order:
+
+* ``tcp_demux`` (K8): the socket match of ``shadow_tpu/net/tcp.py:demux``.
+* ``tcp_ack`` (K9): the ACK block of ``Tcp.on_segment`` — RTT, Reno and
+  NewReno, the SACK scoreboard and the retransmission choice.
+* ``tcp_reorder`` (K10): the data-receive block of ``Tcp.on_segment``
+  (the reorder board) and the SACK word of its ACK reply.
+* ``tcp_out`` (K11): the output pump ``Tcp.on_out``.
+
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no fallback from one to the
 other. A wrapper adds one to its kernel's ``launches`` where it launches
@@ -34,7 +45,8 @@ the kernel and nowhere else.
 
 The kernels are built with nvcc for ``sm_90a`` at first use, into
 ``_build/`` beside this file, and loaded with ctypes; every pointer and
-the stream pass as ``c_void_p``. Each C entry returns
+the stream pass as ``c_void_p`` (``tcp_ack`` and ``tcp_out`` take host
+arrays of their many pointers). Each C entry returns
 ``cudaGetLastError()`` after its launch and the wrapper raises if it is not
 0. ``--fmad=false`` keeps every float32 multiply and add separately
 rounded, as XLA and the plain versions compute them.
@@ -53,7 +65,7 @@ from typing import NamedTuple
 
 import torch
 
-from shadow_tpu_torch.core import rng
+from shadow_tpu_torch.core import rng, soa
 from shadow_tpu_torch.core.simtime import NEVER
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -126,8 +138,24 @@ RING_APPEND = Kernel(
      _P, _P, _P, _P, _P, _P,  # outputs
      _I, _I, _I, _P),
 )
+TCP_DEMUX = Kernel(
+    "tcp_demux",
+    (_P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
+     _P, _P, _P,  # outputs
+     _I, _I, _P),
+)
+# tcp_ack and tcp_out take host arrays of their input and output pointers
+TCP_ACK = Kernel("tcp_ack", (_P, _P, _I, _I, _I, _P))
+TCP_REORDER = Kernel(
+    "tcp_reorder",
+    (_P, _P, _P, _P, _P, _P, _P, _P,  # inputs
+     _P, _P, _P, _P, _P, _P,  # outputs
+     _I, _I, _I, _I, _P),
+)
+TCP_OUT = Kernel("tcp_out", (_P, _P, _I, _I, _I, _P))
 KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
-           LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND)
+           LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
+           TCP_REORDER, TCP_OUT)
 
 
 def reset_launches() -> None:
@@ -153,8 +181,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(k: Kernel) -> str:
-    with open(k.source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a digest of its source, the shared
+    headers and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for path in (k.source, *(os.path.join(CSRC, n) for n in headers)):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{k.name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -1074,6 +1107,591 @@ def ring_append(q_payload, q_col, q_ts, q_head, q_tail, mask, payload, col,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The TCP stack's kernels: K8 tcp_demux, K9 tcp_ack, K10 tcp_reorder,
+# K11 tcp_out
+# ---------------------------------------------------------------------------
+
+# TCP states and header flags (the JAX package's net/tcp.py numbering)
+TCP_CLOSED, TCP_LISTEN, TCP_SYN_SENT, TCP_SYN_RECEIVED = 0, 1, 2, 3
+TCP_ESTABLISHED, TCP_FIN_WAIT_1, TCP_FIN_WAIT_2, TCP_CLOSING = 4, 5, 6, 7
+TCP_TIME_WAIT, TCP_CLOSE_WAIT, TCP_LAST_ACK = 8, 9, 10
+FLAG_FIN, FLAG_SYN, FLAG_RST, FLAG_ACK = 0x01, 0x02, 0x04, 0x10
+RTO_MIN_NS, RTO_MAX_NS = 200_000_000, 60_000_000_000
+M32 = 0xFFFFFFFF
+
+
+def seq_lt(a, b):
+    """a before b in int32 sequence space (sign of the wrapped
+    difference)."""
+    return (b - a).to(torch.int32) > 0
+
+
+def seq_leq(a, b):
+    return (b - a).to(torch.int32) >= 0
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """The uint32 bit pattern of an integer tensor, held in int64."""
+    return x.to(torch.int64) & M32
+
+
+def i32(u: torch.Tensor) -> torch.Tensor:
+    """The int32 whose bit pattern is the uint32 value u (int64)."""
+    return (((u & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def popcount(x):
+    """Set bits of a uint32 (int64 in, int64 out)."""
+    x = u32(x)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
+def bit_length(x):
+    """Position of the highest set bit + 1 of a uint32 (0 for 0), int32."""
+    x = u32(x)
+    n = torch.zeros_like(x)
+    for sh in (16, 8, 4, 2, 1):
+        gt = x >= (1 << sh)
+        n = n + torch.where(gt, sh, 0)
+        x = torch.where(gt, x >> sh, x)
+    return (n + (x > 0).to(torch.int64)).to(torch.int32)
+
+
+def trailing_ones(x):
+    """Consecutive set bits from bit 0 of a uint32, int32."""
+    y = (~u32(x)) & M32
+    lsb = y & (-y)
+    return torch.where(y == 0, 32, popcount(lsb - 1)).to(torch.int32)
+
+
+def pack_sack(om: torch.Tensor) -> torch.Tensor:
+    """The first 32 chunks of a [H, W] board as the int32 bit pattern of
+    a uint32 bitmap (bit k = chunk k)."""
+    n = min(32, om.shape[1])
+    w = torch.ones(n, dtype=torch.int64, device=om.device) << torch.arange(
+        n, dtype=torch.int64, device=om.device)
+    return i32((om[:, :n].to(torch.int64) * w[None, :]).sum(dim=1))
+
+
+def rtt_sample(r, srtt0, rttvar0):
+    """RFC 6298's (srtt, rttvar, rto) after the sample r, int64 ns; srtt0
+    == 0 is the first sample. ``//`` floors, as JAX's does."""
+    first = srtt0 == 0
+    srtt1 = torch.where(first, r, srtt0 + (r - srtt0) // 8)
+    rttvar1 = torch.where(first, r // 2,
+                          rttvar0 + ((srtt0 - r).abs() - rttvar0) // 4)
+    return srtt1, rttvar1, (srtt1 + 4 * rttvar1).clamp(RTO_MIN_NS,
+                                                       RTO_MAX_NS)
+
+
+def slot_gather(arr: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """arr[h, clip(slot[h], 0, S - 1)] of an [H, S] or [H, S, W] array."""
+    idx = slot.clamp(0, arr.shape[1] - 1).to(torch.int64)
+    if arr.dim() == 2:
+        return arr.gather(1, idx[:, None])[:, 0]
+    return arr[torch.arange(arr.shape[0], device=arr.device), idx]
+
+
+def _bits(*masks) -> torch.Tensor:
+    """[H] int32 with bit i set where masks[i]."""
+    out = masks[0].to(torch.int32)
+    for i, m in enumerate(masks[1:], 1):
+        out = out | (m.to(torch.int32) << i)
+    return out
+
+
+def _tcp_args(name, fields, names, H, S):
+    """The checked pointers of [H, S] TCP table fields."""
+    return tuple(_check(f, TCP_DTYPES[n], (H, S), f"{name}.{n}")
+                 for f, n in zip(fields, names))
+
+
+def _ptr_array(ptrs) -> ctypes.Array:
+    """A host array of device pointers for an entry that takes many; the
+    caller holds it until the entry has returned (the entry copies the
+    pointers into the kernel's arguments)."""
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+# [H, S] field dtypes of the TCP table
+TCP_DTYPES = {
+    **{n: torch.int32 for n in (
+        "local_port", "peer_host", "peer_port", "state", "snd_una",
+        "snd_nxt", "snd_max", "snd_wnd", "snd_buf_end", "fin_seq",
+        "rcv_nxt", "fin_rcvd_seq", "cwnd", "ssthresh", "dup_acks",
+        "sack_bits", "rtx_high", "recover", "rtt_seq", "gen")},
+    **{n: torch.int64 for n in (
+        "srtt", "rttvar", "rto", "rtt_start", "rtx_expire", "bytes_acked",
+        "bytes_received")},
+    **{n: torch.bool for n in (
+        "used", "fin_pending", "fin_sent", "fin_rcvd", "fast_recovery",
+        "rtt_armed", "rtx_armed", "out_pending")},
+}
+
+
+# --- K8 tcp_demux ---
+
+
+class DemuxOut(NamedTuple):
+    slot: torch.Tensor  # [H] int32
+    found: torch.Tensor  # [H] bool
+    is_listener: torch.Tensor  # [H] bool
+
+
+def tcp_demux_plain(used, local_port, peer_host, peer_port, state, mask,
+                    dport, sport, src) -> DemuxOut:
+    """Plain version of ``shadow_tpu/net/tcp.py:demux``: score 2 for a
+    4-tuple match of a non-listener, 1 for a listener on the port; the
+    lowest slot wins ties (torch's max, like jnp.argmax, returns the
+    first maximal index)."""
+    port_ok = used & (local_port == dport[:, None])
+    conn = (port_ok & (peer_host == src[:, None])
+            & (peer_port == sport[:, None]) & (state != TCP_LISTEN))
+    listener = port_ok & (state == TCP_LISTEN)
+    score = conn.to(torch.int32) * 2 + listener.to(torch.int32)
+    best, slot = score.max(dim=1)
+    found = mask & (best > 0)
+    return DemuxOut(slot.to(torch.int32), found, found & (best == 1))
+
+
+def tcp_demux(used, local_port, peer_host, peer_port, state, mask, dport,
+              sport, src) -> DemuxOut:
+    """Match one incoming segment per host to a socket (see
+    ``tcp_demux_plain``)."""
+    args = (used, local_port, peer_host, peer_port, state, mask, dport,
+            sport, src)
+    if not _on_card(*args):
+        return tcp_demux_plain(*args)
+    H, S = used.shape
+    dev = used.device
+    ins = (
+        *_tcp_args("tcp_demux", (used, local_port, peer_host, peer_port,
+                                 state),
+                   ("used", "local_port", "peer_host", "peer_port", "state"),
+                   H, S),
+        _check(mask, torch.bool, (H,), "mask"),
+        _check(dport, torch.int32, (H,), "dport"),
+        _check(sport, torch.int32, (H,), "sport"),
+        _check(src, torch.int32, (H,), "src"),
+    )
+    out = DemuxOut(torch.empty(H, dtype=torch.int32, device=dev),
+                   torch.empty(H, dtype=torch.bool, device=dev),
+                   torch.empty(H, dtype=torch.bool, device=dev))
+    _launch(TCP_DEMUX, *ins, *(t.data_ptr() for t in out), H, S,
+            _stream(used))
+    return out
+
+
+# --- K9 tcp_ack ---
+
+# the [H, S] fields tcp_ack reads, and those it returns (new tensors)
+ACK_IN = ("state", "snd_una", "snd_nxt", "snd_max", "snd_wnd",
+          "snd_buf_end", "fin_seq", "fin_sent", "cwnd", "ssthresh",
+          "dup_acks", "fast_recovery", "recover", "sack_bits", "rtx_high",
+          "srtt", "rttvar", "rto", "rtt_armed", "rtt_seq", "rtt_start",
+          "rtx_armed", "rtx_expire", "bytes_acked")
+ACK_OUT = ("state", "snd_una", "snd_nxt", "snd_wnd", "cwnd", "ssthresh",
+           "dup_acks", "fast_recovery", "recover", "sack_bits", "rtx_high",
+           "srtt", "rttvar", "rto", "rtt_armed", "rtx_expire", "bytes_acked")
+# bits of AckOut.flags
+(ACK_SR_EST, ACK_NEW_ACKED, ACK_INFLATE, ACK_DATA_RTX, ACK_FIN_RTX,
+ ACK_TW_ENTER, ACK_FREE, ACK_DUP, ACK_TRIGGER_FR, ACK_PARTIAL,
+ ACK_SACK_RTX) = range(11)
+
+
+class AckOut(NamedTuple):
+    """The ACK block's result: the ``ACK_OUT`` fields after it, and per
+    host its decisions (``flags``, bits ``ACK_*``) and the segment of a
+    data or FIN retransmission."""
+
+    fields: tuple
+    flags: torch.Tensor  # [H] int32
+    rtx_seq: torch.Tensor  # [H] int32
+    rtx_len: torch.Tensor  # [H] int32
+    fin_seq: torch.Tensor  # [H] int32
+
+
+def tcp_ack_plain(mask, slot, flags, seg_ack, seg_len, seg_wnd, seg_sack,
+                  st, now, *fields, mss: int) -> AckOut:
+    """Plain version of the ACK block of ``shadow_tpu/net/tcp.py:
+    Tcp.on_segment`` (SYN_RECEIVED → ESTABLISHED, duplicate ACKs and
+    Reno/NewReno, ``bytes_acked``, the snd_nxt >= snd_una drag,
+    ``_rtt_update``, ``_push_back_rtx``, the FIN-acked state moves, the
+    sender SACK scoreboard and the fast / partial / SACK retransmit
+    choice) for the masked hosts' ``slot``; ``st`` is the slot's state
+    read before the block."""
+    f = dict(zip(ACK_IN, fields))
+
+    def g(name):
+        return slot_gather(f[name], slot)
+
+    has_syn = (flags & FLAG_SYN) != 0
+    has_fin = (flags & FLAG_FIN) != 0
+    una, nxt, smax = g("snd_una"), g("snd_nxt"), g("snd_max")
+    m_ack = mask & ((flags & FLAG_ACK) != 0)
+    acceptable = m_ack & seq_leq(una, seg_ack) & seq_leq(seg_ack, smax)
+    new_acked = acceptable & seq_lt(una, seg_ack)
+    m_sr_est = new_acked & (st == TCP_SYN_RECEIVED)
+    st_now = torch.where(m_sr_est, TCP_ESTABLISHED, g("state"))
+
+    # duplicate ACKs and Reno/NewReno (before una moves)
+    is_dup = (m_ack & (seg_ack == una) & (seg_len == 0) & ~has_syn
+              & ~has_fin & seq_lt(una, nxt))
+    fr = g("fast_recovery")
+    dups0 = g("dup_acks")
+    dups1 = torch.where(is_dup & ~fr, dups0 + 1, dups0)
+    trigger_fr = is_dup & ~fr & (dups1 == 3)
+    flight = (nxt - una).to(torch.int32)
+    ssth_on_loss = torch.clamp(flight // 2, min=2 * mss)
+    inflate = is_dup & fr
+    cwnd0, ssth0 = g("cwnd"), g("ssthresh")
+    cwnd1 = torch.where(trigger_fr, ssth_on_loss + 3 * mss,
+                        torch.where(inflate, cwnd0 + mss, cwnd0))
+    ssth1 = torch.where(trigger_fr, ssth_on_loss, ssth0)
+    fr1 = fr | trigger_fr
+    rec1 = torch.where(trigger_fr, smax, g("recover"))
+    full_ack = new_acked & fr1 & seq_leq(rec1, seg_ack)
+    partial_ack = new_acked & fr1 & ~full_ack
+    cwnd2 = torch.where(full_ack, ssth1, cwnd1)
+    fr2 = fr1 & ~full_ack
+    dups2 = torch.where(new_acked, 0, dups1)
+    grow = new_acked & ~fr1
+    acked_bytes = (seg_ack - una).to(torch.int32)
+    in_ss = cwnd2 < ssth1
+    cwnd3 = torch.where(
+        grow & in_ss, cwnd2 + torch.clamp(acked_bytes, max=mss),
+        torch.where(grow & ~in_ss,
+                    cwnd2 + torch.clamp((mss * mss)
+                                        // torch.clamp(cwnd2, min=1), min=1),
+                    cwnd2))
+
+    # bytes_acked without the SYN/FIN phantom bytes; the snd_nxt drag
+    fin_seq_g, fin_sent_g = g("fin_seq"), g("fin_sent")
+    syn_ph = new_acked & (una == 0)
+    fin_acked = (new_acked & fin_sent_g & seq_leq(una, fin_seq_g)
+                 & seq_lt(fin_seq_g, seg_ack))
+    app_bytes = (acked_bytes - syn_ph.to(torch.int32)
+                 - fin_acked.to(torch.int32))
+    nxt1 = torch.where(new_acked & seq_lt(nxt, seg_ack), seg_ack, nxt)
+    una2 = torch.where(new_acked, seg_ack, una)
+
+    # _rtt_update, then _push_back_rtx with the new rto
+    armed0 = g("rtt_armed")
+    take = new_acked & seq_leq(g("rtt_seq"), seg_ack) & armed0
+    srtt0, rttvar0, rto0 = g("srtt"), g("rttvar"), g("rto")
+    srtt1, rttvar1, rto1 = rtt_sample(now - g("rtt_start"), srtt0, rttvar0)
+    srtt_n = torch.where(take, srtt1, srtt0)
+    rttvar_n = torch.where(take, rttvar1, rttvar0)
+    rto_n = torch.where(take, rto1, rto0)
+    armed_n = armed0 & ~take
+    expire_n = torch.where(new_acked & g("rtx_armed"), now + rto_n,
+                           g("rtx_expire"))
+
+    # our FIN acked: FIN_WAIT_1 → FIN_WAIT_2, CLOSING → TIME_WAIT,
+    # LAST_ACK → CLOSED
+    st_fin = torch.where(
+        st_now == TCP_FIN_WAIT_1, TCP_FIN_WAIT_2,
+        torch.where(st_now == TCP_CLOSING, TCP_TIME_WAIT,
+                    torch.where(st_now == TCP_LAST_ACK, TCP_CLOSED, st_now)))
+    st_n = torch.where(fin_acked, st_fin, st_now)
+    m_tw_enter = fin_acked & (st_now == TCP_CLOSING)
+    m_free = fin_acked & (st_now == TCP_LAST_ACK)
+
+    # sender SACK scoreboard: a pure ACK's bitmap is authoritative; a
+    # data-carrying ACK shifts the board by the chunks it acked
+    pure_ack = m_ack & (seg_len == 0) & ~has_syn & ~has_fin
+    sb0 = u32(g("sack_bits"))
+    nch = acked_bytes // mss
+    acked_ch = nch.clamp(0, 31).to(torch.int64)
+    sb_shift = torch.where(new_acked,
+                           torch.where(nch >= 32, 0, sb0 >> acked_ch), sb0)
+    sb1 = torch.where(pure_ack & acceptable, u32(seg_sack), sb_shift)
+
+    # fast / partial / SACK retransmission
+    rtx_high0 = g("rtx_high")
+    rtx_high_eff = torch.where(trigger_fr, una2, rtx_high0)
+    done_ch = ((rtx_high_eff - una2).to(torch.int32) // mss).clamp(
+        0, 32).to(torch.int64)
+    one = torch.ones_like(done_ch)
+    done_mask = torch.where(done_ch >= 32, M32, (one << done_ch) - 1)
+    fh = trailing_ones(sb1 | done_mask)
+    blen = bit_length(sb1)
+    newreno_rtx = trigger_fr | partial_ack
+    hole_visible = (sb1 != 0) & (fh < blen) & (fh < 32)
+    sack_rtx = inflate & hole_visible
+    do_rtx = (newreno_rtx & (hole_visible | (fh == 0))) | sack_rtx
+    f_eff = torch.where(hole_visible, torch.clamp(fh, max=31), 0)
+    rtx_seq = una2 + f_eff * mss
+    buf = g("snd_buf_end")
+    rtx_len = torch.clamp((buf - rtx_seq).to(torch.int32), max=mss)
+    data_rtx = do_rtx & (rtx_len > 0)
+    fin_rtx = (newreno_rtx
+               & (torch.clamp((buf - una2).to(torch.int32), max=mss) <= 0)
+               & fin_sent_g)
+    armed_n = armed_n & ~do_rtx  # Karn
+    rtx_high_n = torch.where(data_rtx, rtx_seq + rtx_len, rtx_high_eff)
+
+    new = {
+        "state": st_n, "snd_una": una2, "snd_nxt": nxt1,
+        "snd_wnd": torch.where(acceptable, seg_wnd, g("snd_wnd")),
+        "cwnd": cwnd3, "ssthresh": ssth1, "dup_acks": dups2,
+        "fast_recovery": fr2, "recover": rec1, "sack_bits": i32(sb1),
+        "rtx_high": rtx_high_n, "srtt": srtt_n, "rttvar": rttvar_n,
+        "rto": rto_n, "rtt_armed": armed_n, "rtx_expire": expire_n,
+        "bytes_acked": g("bytes_acked") + torch.where(
+            new_acked, app_bytes, 0).to(torch.int64),
+    }
+    # every write of the block is under m_ack ⊆ mask: where a narrower
+    # condition is off, the slot's old value goes back
+    return AckOut(
+        fields=tuple(soa.set_at(f[n], mask, slot, new[n]) for n in ACK_OUT),
+        flags=_bits(m_sr_est, new_acked, inflate, data_rtx, fin_rtx,
+                    m_tw_enter, m_free, is_dup, trigger_fr, partial_ack,
+                    sack_rtx),
+        rtx_seq=rtx_seq.to(torch.int32), rtx_len=rtx_len.to(torch.int32),
+        fin_seq=fin_seq_g,
+    )
+
+
+def tcp_ack(mask, slot, flags, seg_ack, seg_len, seg_wnd, seg_sack, st, now,
+            *fields, mss: int) -> AckOut:
+    """The ACK block of one incoming segment per host (see
+    ``tcp_ack_plain``); ``fields`` are the ``ACK_IN`` fields, [H, S]."""
+    per_host = (mask, slot, flags, seg_ack, seg_len, seg_wnd, seg_sack, st,
+                now)
+    if not _on_card(*per_host, *fields):
+        return tcp_ack_plain(*per_host, *fields, mss=mss)
+    H, S = fields[0].shape
+    dev = mask.device
+    hdt = (torch.bool, *(torch.int32,) * 7, torch.int64)
+    ins = (*(_check(t, dt, (H,), n) for t, dt, n in zip(
+        per_host, hdt, ("mask", "slot", "flags", "seg_ack", "seg_len",
+                        "seg_wnd", "seg_sack", "st", "now"))),
+        *_tcp_args("tcp_ack", fields, ACK_IN, H, S))
+    outs = tuple(torch.empty((H, S), dtype=TCP_DTYPES[n], device=dev)
+                 for n in ACK_OUT)
+    per = tuple(torch.empty(H, dtype=torch.int32, device=dev)
+                for _ in range(4))
+    p_in = _ptr_array(ins)
+    p_out = _ptr_array([t.data_ptr() for t in outs + per])
+    _launch(TCP_ACK, ctypes.addressof(p_in), ctypes.addressof(p_out), H, S,
+            mss, _stream(mask))
+    return AckOut(outs, *per)
+
+
+# --- K10 tcp_reorder ---
+
+# bits of ReorderOut.flags
+RO_IN_ORDER, RO_OOO, RO_DROP, RO_ABSORB = range(4)
+
+
+class ReorderOut(NamedTuple):
+    """The data-receive block's result: the receive fields after it, and
+    per host its decisions (``flags``, bits ``RO_*``), the in-order bytes
+    delivered up and the SACK word of the ACK reply."""
+
+    rcv_nxt: torch.Tensor  # [H, S] int32
+    ooo_map: torch.Tensor  # [H, S, W] bool
+    bytes_received: torch.Tensor  # [H, S] int64
+    flags: torch.Tensor  # [H] int32
+    adv: torch.Tensor  # [H] int32
+    sack: torch.Tensor  # [H] int32
+
+
+def tcp_reorder_plain(mask, slot, seg_seq, seg_len, state, rcv_nxt, ooo_map,
+                      bytes_received, *, mss: int) -> ReorderOut:
+    """Plain version of the data-receive block of ``shadow_tpu/net/tcp.py:
+    Tcp.on_segment`` (the reorder board) and ``_pack_sack`` of the
+    slot's board after it. Chunk i of the board is [rcv_nxt + i·MSS,
+    +MSS); an in-order MSS segment shifts the board one chunk and absorbs
+    the run of chunks already held; a short segment clears it; an
+    out-of-order MSS-aligned segment within the board sets its chunk, any
+    other is dropped."""
+    W = ooo_map.shape[2]
+    st2 = slot_gather(state, slot)
+    can_rcv = ((st2 == TCP_ESTABLISHED) | (st2 == TCP_FIN_WAIT_1)
+               | (st2 == TCP_FIN_WAIT_2))
+    m_data = mask & (seg_len > 0) & can_rcv
+    rn = slot_gather(rcv_nxt, slot)
+    d = (seg_seq - rn).to(torch.int32)
+    in_order = m_data & (d == 0)
+    om = slot_gather(ooo_map, slot)
+    full = seg_len == mss
+    n_absorb = torch.where(
+        full, torch.cumprod(om[:, 1:].to(torch.int32), dim=1).sum(dim=1),
+        0).to(torch.int32)
+    adv = torch.where(in_order, seg_len + n_absorb * mss, 0).to(torch.int32)
+    shift = torch.where(full, 1 + n_absorb, W).to(torch.int64)
+    idx = torch.arange(W, device=om.device)[None, :] + shift[:, None]
+    om_shifted = torch.cat([om, torch.zeros_like(om)], dim=1).gather(
+        1, idx.clamp(0, 2 * W - 1))
+    om1 = torch.where(in_order[:, None], om_shifted, om)
+    m_ooo = m_data & (d > 0)
+    kchunk = d // mss
+    aligned = (m_ooo & (d % mss == 0) & full & (kchunk >= 1)
+               & (kchunk < W))
+    om2 = soa.set_at(om1, aligned, kchunk, True)
+    return ReorderOut(
+        rcv_nxt=soa.set_at(rcv_nxt, in_order, slot, rn + adv),
+        ooo_map=soa.set_at(ooo_map, in_order | aligned, slot, om2),
+        bytes_received=soa.add_at(bytes_received, in_order, slot, adv),
+        flags=_bits(in_order, aligned, m_ooo & ~aligned,
+                    in_order & (n_absorb > 0)),
+        adv=adv,
+        sack=pack_sack(torch.where((in_order | aligned)[:, None], om2, om)),
+    )
+
+
+def tcp_reorder(mask, slot, seg_seq, seg_len, state, rcv_nxt, ooo_map,
+                bytes_received, *, mss: int) -> ReorderOut:
+    """The data-receive block of one incoming segment per host (see
+    ``tcp_reorder_plain``)."""
+    args = (mask, slot, seg_seq, seg_len, state, rcv_nxt, ooo_map,
+            bytes_received)
+    if not _on_card(*args):
+        return tcp_reorder_plain(*args, mss=mss)
+    H, S, W = ooo_map.shape
+    dev = mask.device
+    ins = (
+        _check(mask, torch.bool, (H,), "mask"),
+        _check(slot, torch.int32, (H,), "slot"),
+        _check(seg_seq, torch.int32, (H,), "seg_seq"),
+        _check(seg_len, torch.int32, (H,), "seg_len"),
+        *_tcp_args("tcp_reorder", (state, rcv_nxt, bytes_received),
+                   ("state", "rcv_nxt", "bytes_received"), H, S),
+        _check(ooo_map, torch.bool, (H, S, W), "ooo_map"),
+    )
+    e = lambda dt, *sh: torch.empty(sh, dtype=dt, device=dev)  # noqa: E731
+    out = ReorderOut(
+        rcv_nxt=e(torch.int32, H, S), ooo_map=e(torch.bool, H, S, W),
+        bytes_received=e(torch.int64, H, S), flags=e(torch.int32, H),
+        adv=e(torch.int32, H), sack=e(torch.int32, H),
+    )
+    _launch(TCP_REORDER, *ins, *(t.data_ptr() for t in out), H, S, W, mss,
+            _stream(mask))
+    return out
+
+
+# --- K11 tcp_out ---
+
+OUT_IN = ("out_pending", "used", "state", "snd_una", "snd_nxt", "snd_max",
+          "snd_buf_end", "cwnd", "snd_wnd", "sack_bits", "fin_pending",
+          "fin_sent", "rcv_nxt", "peer_host", "rtt_armed", "rtt_seq",
+          "rtt_start", "fin_seq")
+OUT_OUT = ("out_pending", "snd_nxt", "snd_max", "fin_seq", "fin_sent",
+           "state", "rtt_armed", "rtt_seq", "rtt_start")
+# bits of OutOut.flags
+OUT_SEND_DATA, OUT_SEND_FIN, OUT_SKIP, OUT_RTX, OUT_MORE = range(5)
+
+
+class OutOut(NamedTuple):
+    """The output pump's result: the ``OUT_OUT`` fields after it, and per
+    host its decisions (``flags``, bits ``OUT_*``) and the segment."""
+
+    fields: tuple
+    flags: torch.Tensor  # [H] int32
+    seg_len: torch.Tensor  # [H] int32
+    seq: torch.Tensor  # [H] int32
+    ack: torch.Tensor  # [H] int32
+    dst: torch.Tensor  # [H] int32
+
+
+def tcp_out_plain(mask, slot, now, *fields, mss: int) -> OutOut:
+    """Plain version of ``shadow_tpu/net/tcp.py:Tcp.on_out`` without its
+    emissions: clear out_pending, then on a usable socket in a sending
+    state send one segment of min(MSS, data left, window), skipping
+    chunks the peer SACKed while re-walking the flight, or the FIN after
+    the data; advance snd_nxt / snd_max, move the state on a FIN, arm an
+    RTT sample on fresh data, and decide whether the pump re-arms."""
+    f = dict(zip(OUT_IN, fields))
+
+    def g(name):
+        return slot_gather(f[name], slot)
+
+    def put(name, cond, val):
+        return soa.set_at(f[name], cond, slot, val)
+
+    m = mask & g("used")
+    st = g("state")
+    can_send = ((st == TCP_ESTABLISHED) | (st == TCP_CLOSE_WAIT)
+                | (st == TCP_FIN_WAIT_1) | (st == TCP_CLOSING)
+                | (st == TCP_LAST_ACK))
+    una, nxt, smax, buf = (g("snd_una"), g("snd_nxt"), g("snd_max"),
+                           g("snd_buf_end"))
+    wnd = torch.minimum(g("cwnd"), g("snd_wnd"))
+    avail_win = (una + wnd - nxt).to(torch.int32)
+    have_data = seq_lt(nxt, buf)
+    left = torch.clamp((buf - nxt).to(torch.int32), max=mss)
+    seg_len = torch.minimum(left, avail_win)
+    send_data = m & can_send & have_data & (seg_len > 0)
+    ch = (nxt - una).to(torch.int32) // mss
+    sb = u32(g("sack_bits"))
+    sacked = ((ch >= 0) & (ch < 32)
+              & (((sb >> ch.clamp(0, 31).to(torch.int64)) & 1) == 1))
+    skip = send_data & seq_lt(nxt, smax) & sacked
+    send_data = send_data & ~skip
+    fin_p, fin_s = g("fin_pending"), g("fin_sent")
+    send_fin = m & can_send & ~have_data & fin_p & ~fin_s
+    sent_any = send_data | send_fin
+    advanced = sent_any | skip
+    nxt1 = torch.where(send_data, nxt + seg_len,
+                       torch.where(skip, nxt + left,
+                                   torch.where(send_fin, nxt + 1, nxt)))
+    is_rtx = sent_any & seq_lt(nxt, smax)
+    smax1 = torch.where(seq_lt(smax, nxt1), nxt1, smax)
+    arm_rtt = send_data & ~g("rtt_armed") & ~is_rtx
+    avail1 = (una + wnd - nxt1).to(torch.int32)
+    more = m & can_send & advanced & (
+        (seq_lt(nxt1, buf) & (avail1 > 0))
+        | (fin_p & ~(fin_s | send_fin) & ~seq_lt(nxt1, buf)))
+
+    new = {
+        "out_pending": put("out_pending", mask, False),
+        "snd_nxt": put("snd_nxt", advanced, nxt1),
+        "snd_max": put("snd_max", sent_any, smax1),
+        "fin_seq": put("fin_seq", send_fin, nxt),
+        "fin_sent": put("fin_sent", send_fin, True),
+        "state": put("state", send_fin, torch.where(
+            st == TCP_ESTABLISHED, TCP_FIN_WAIT_1,
+            torch.where(st == TCP_CLOSE_WAIT, TCP_LAST_ACK, st))),
+        "rtt_armed": put("rtt_armed", arm_rtt, True),
+        "rtt_seq": put("rtt_seq", arm_rtt, nxt1),
+        "rtt_start": put("rtt_start", arm_rtt, now),
+    }
+    return OutOut(
+        fields=tuple(new[n] for n in OUT_OUT),
+        flags=_bits(send_data, send_fin, skip, is_rtx, more),
+        seg_len=torch.clamp(seg_len, min=0).to(torch.int32),
+        seq=nxt, ack=g("rcv_nxt"), dst=g("peer_host"),
+    )
+
+
+def tcp_out(mask, slot, now, *fields, mss: int) -> OutOut:
+    """The output pump of one event per host (see ``tcp_out_plain``);
+    ``fields`` are the ``OUT_IN`` fields, [H, S]."""
+    if not _on_card(mask, slot, now, *fields):
+        return tcp_out_plain(mask, slot, now, *fields, mss=mss)
+    H, S = fields[0].shape
+    dev = mask.device
+    ins = (_check(mask, torch.bool, (H,), "mask"),
+           _check(slot, torch.int32, (H,), "slot"),
+           _check(now, torch.int64, (H,), "now"),
+           *_tcp_args("tcp_out", fields, OUT_IN, H, S))
+    outs = tuple(torch.empty((H, S), dtype=TCP_DTYPES[n], device=dev)
+                 for n in OUT_OUT)
+    per = tuple(torch.empty(H, dtype=torch.int32, device=dev)
+                for _ in range(5))
+    p_in = _ptr_array(ins)
+    p_out = _ptr_array([t.data_ptr() for t in outs + per])
+    _launch(TCP_OUT, ctypes.addressof(p_in), ctypes.addressof(p_out), H, S,
+            mss, _stream(mask))
+    return OutOut(outs, *per)
+
+
 class WindowOps(NamedTuple):
     """The window-step functions the engine and the network stack call."""
 
@@ -1084,12 +1702,19 @@ class WindowOps(NamedTuple):
     loop_route: object
     codel_dequeue: object
     ring_append: object
+    tcp_demux: object
+    tcp_ack: object
+    tcp_reorder: object
+    tcp_out: object
 
 
 # the wrappers: the kernels on the card, the plain versions on the CPU
 KERNEL_OPS = WindowOps(extract_slots, phold_forward, audit_commit,
-                       loop_select, loop_route, codel_dequeue, ring_append)
+                       loop_select, loop_route, codel_dequeue, ring_append,
+                       tcp_demux, tcp_ack, tcp_reorder, tcp_out)
 # the plain versions on any device (the on-card comparison run)
 PLAIN_OPS = WindowOps(extract_slots_plain, phold_forward_plain,
                       audit_commit_plain, loop_select_plain, loop_route_plain,
-                      codel_dequeue_plain, ring_append_plain)
+                      codel_dequeue_plain, ring_append_plain,
+                      tcp_demux_plain, tcp_ack_plain, tcp_reorder_plain,
+                      tcp_out_plain)

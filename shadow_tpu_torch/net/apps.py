@@ -1,4 +1,5 @@
-"""Device-side application models: PHOLD, the UDP flood and UDP echo.
+"""Device-side application models: PHOLD, the UDP flood, UDP echo and the
+TCP bulk transfer.
 
 The JAX package's ``net/apps.py``:
 
@@ -14,6 +15,8 @@ The JAX package's ``net/apps.py``:
   path.
 * ``UdpEchoApp``: clients send a timestamped datagram to one server,
   which echoes it; clients sum the round trips.
+* ``TcpBulkApp`` (BASELINE config 3): each client pushes a fixed stream
+  to a server over TCP and closes.
 """
 
 from __future__ import annotations
@@ -326,6 +329,82 @@ class UdpEchoApp:
         return self.stack.udp_sendto(
             state, emitter, server_got, now, src, None, None, None, 0,
             payload=reply, params=params)
+
+    def handlers(self):
+        return {KIND_APP_TIMER: self.on_timer}
+
+
+class TcpBulkApp:
+    """BASELINE config 3: each client opens a TCP connection to a server
+    and pushes ``total_bytes`` through the congestion-controlled stream,
+    then closes. Servers listen on SERVER_PORT (slot 0) and accept into
+    child sockets, so a server needs more sockets than clients; clients
+    connect from slot 0 at ``start_time``."""
+
+    SUB = "tcp_bulk"
+
+    def __init__(self, num_hosts: int, server_hosts, total_bytes: int,
+                 start_time: int = simtime.NS_PER_SEC):
+        self.num_hosts = num_hosts
+        self.server_hosts = list(server_hosts)
+        self.total_bytes = int(total_bytes)
+        self.start_time = int(start_time)
+
+    def attach(self, stack):
+        self.stack = stack
+        role = np.ones(self.num_hosts, dtype=np.int32)
+        role[self.server_hosts] = 0
+        self._role = role
+        self._target = np.array(
+            [self.server_hosts[i % len(self.server_hosts)]
+             for i in range(self.num_hosts)], dtype=np.int32)
+        for s in self.server_hosts:
+            stack.tcp_listen(s, 0, SERVER_PORT)
+        stack.tcp.on_established(self.on_established)
+        stack.tcp.on_peer_fin(self.on_peer_fin)
+
+    def init_sub(self, device=None) -> dict:
+        H = self.num_hosts
+        z = lambda: torch.zeros(H, dtype=torch.int64,  # noqa: E731
+                                device=device)
+        return {"connected": z(), "accepted": z(), "eof_seen": z(),
+                "role": torch.as_tensor(self._role, device=device),
+                "target": torch.as_tensor(self._target, device=device)}
+
+    def initial_events(self):
+        return [(self.start_time, h, h, KIND_APP_TIMER, [])
+                for h in range(self.num_hosts) if int(self._role[h]) == 1]
+
+    def on_timer(self, state, ev, emitter, params):
+        """Client start: active open toward the target server."""
+        sub = state.subs[self.SUB]
+        go = ev.mask & (sub["role"] == 1)
+        return self.stack.tcp.connect(
+            state, emitter, go, torch.zeros_like(sub["role"]),
+            sub["target"], SERVER_PORT, CLIENT_PORT_BASE, ev.time,
+            params=params)
+
+    def on_established(self, state, mask, slot, is_accept, src, now,
+                       emitter, params):
+        sub = dict(state.subs[self.SUB])
+        client_up = mask & ~is_accept & (sub["role"] == 1)
+        sub["connected"] = sub["connected"] + client_up.to(torch.int64)
+        sub["accepted"] = sub["accepted"] + (
+            mask & is_accept & (sub["role"] == 0)).to(torch.int64)
+        state = state.with_sub(self.SUB, sub)
+        # the whole stream goes into sequence space; the FIN rides after it
+        state = self.stack.tcp.send_app(state, emitter, client_up, slot,
+                                        self.total_bytes, now)
+        return self.stack.tcp.close_app(state, emitter, client_up, slot,
+                                        now)
+
+    def on_peer_fin(self, state, mask, slot, now, emitter, params):
+        """Server side: the client finished sending; close our half."""
+        sub = dict(state.subs[self.SUB])
+        srv = mask & (sub["role"] == 0)
+        sub["eof_seen"] = sub["eof_seen"] + srv.to(torch.int64)
+        state = state.with_sub(self.SUB, sub)
+        return self.stack.tcp.close_app(state, emitter, srv, slot, now)
 
     def handlers(self):
         return {KIND_APP_TIMER: self.on_timer}

@@ -30,10 +30,16 @@ __all__ = ["MTU", "PROTO_TCP", "TCP_HEADER_BYTES", "UDP_HEADER_BYTES",
 W_SRC_PORT = 1
 W_DST_PORT = 2
 W_PRIORITY = 4  # app-order priority (the fifo qdisc's key)
+W_FLAGS = 5  # TCP flags
 W_SEQ = 6  # TCP sequence number (UDP echo: send time, low word)
 W_ACK = 7  # TCP acknowledgment (UDP echo: send time, high word)
+W_WND = 8  # TCP advertised window
 W_SRC_HOST = 9  # global host index of the original sender
 W_SOCKET = 10  # sender-side socket slot
+W_HANDLE = 11  # CPU-side payload buffer handle (unused by device apps)
+# pure TCP ACKs carry a 32-chunk SACK bitmap in the handle word: bit k =
+# the receiver holds chunk [rcv_nxt + k*MSS, +MSS)
+W_SACK = W_HANDLE
 
 PROTO_UDP = 17
 

@@ -1,13 +1,13 @@
-"""NetStack: NIC + router (CoDel) + UDP composed into engine handlers.
+"""NetStack: NIC + router (CoDel) + UDP + TCP composed into engine
+handlers.
 
-The JAX package's ``net/stack.py`` without TCP (``ROADMAP.md``, device
-function B11):
+The JAX package's ``net/stack.py``:
 
   send:    app → udp_sendto → NIC send ring → send pump (tokens, qdisc)
            → link transit (loss roll + latency) → KIND_PKT_DELIVER event
   receive: KIND_PKT_DELIVER → router CoDel enqueue → receive pump
            (rx tokens) → CoDel dequeue → port demux → socket counters
-           → app receive hooks
+           → app receive hooks → TCP segment processing (``net/tcp.py``)
 
 An uncontended packet (empty queue, tokens in the bucket) goes straight
 through in the same micro-step on both sides; loopback traffic bypasses
@@ -29,6 +29,7 @@ from shadow_tpu_torch.core.state import (
     SimState,
 )
 from shadow_tpu_torch.net import codel, link, nic, udp
+from shadow_tpu_torch.net import tcp as tcp_mod
 from shadow_tpu_torch.net import packet as pkt
 from shadow_tpu_torch.net import pds as pds_mod
 from shadow_tpu_torch.net import qdisc as qdisc_mod
@@ -59,10 +60,6 @@ class NetStack:
         discipline: qdisc_mod.Discipline | None = None,
         device=None,
     ):
-        if with_tcp:
-            raise NotImplementedError(
-                "TCP is not ported to shadow_tpu_torch yet (ROADMAP.md "
-                "queue A 7, device function B11)")
         if discipline is None:
             discipline = qdisc_mod.make_discipline(qdisc)
         self.disc = discipline
@@ -83,12 +80,19 @@ class NetStack:
                                        device=device)
         self._init_udp = udp.init(num_hosts, sockets_per_host,
                                   device=device)
-        self.tcp = None
+        # UDP-only simulations carry no TCP table and run no TCP handler
+        self.tcp = (tcp_mod.Tcp(num_hosts, sockets_per_host,
+                                payload_words=payload_words, device=device)
+                    if with_tcp else None)
+        if self.tcp is not None:
+            self.tcp.attach(self)
         self.recv_hooks: list[RecvHook] = []
         self.recv_batch = self.PUMP_BATCH
         # consecutive KIND_PKT_DELIVER events one host may consume per
-        # micro-step when bulk_gate proves them direct-deliverable
-        self.deliver_batch = 8
+        # micro-step when bulk_gate proves them direct-deliverable; TCP
+        # builds take one (the segment handler arms sub-window timers,
+        # which the gate cannot bound)
+        self.deliver_batch = 1 if with_tcp else 8
 
     # ---- build-time API ----
 
@@ -96,6 +100,11 @@ class NetStack:
                  peer_host: int = udp.ANY_PEER, peer_port: int = 0):
         udp.bind_static(self._init_udp, host, slot, port, peer_host,
                         peer_port)
+
+    def tcp_listen(self, host: int, slot: int, port: int):
+        if self.tcp is None:
+            raise ValueError("stack built with with_tcp=False")
+        self.tcp.listen(host, slot, port)
 
     def on_receive(self, hook: RecvHook):
         self.recv_hooks.append(hook)
@@ -106,6 +115,8 @@ class NetStack:
             codel.SUB: self._init_router,
             udp.SUB: self._init_udp,
         }
+        if self.tcp is not None:
+            subs[tcp_mod.SUB] = self.tcp.init_sub()
         subs.update(self.disc.init_subs())
         return subs
 
@@ -213,6 +224,10 @@ class NetStack:
         for hook in self.recv_hooks:
             state = hook(state, found, slot, src, payload, emitter, now,
                          params)
+        if self.tcp is not None:
+            is_tcp = mask & (payload[:, pkt.W_PROTO] == pkt.PROTO_TCP)
+            state = self.tcp.on_segment(state, is_tcp, src, payload, emitter,
+                                        now, params)
         return state
 
     def on_pkt_deliver(self, state: SimState, ev: EventView,
@@ -379,8 +394,11 @@ class NetStack:
         return torch.where(quiet, cap.clamp(0, G - 1), 0).to(torch.int32)
 
     def handlers(self) -> dict:
-        return {
+        h = {
             KIND_PKT_DELIVER: self.on_pkt_deliver,
             KIND_NIC_SEND: self.on_nic_send,
             KIND_NIC_RECV: self.on_nic_recv,
         }
+        if self.tcp is not None:
+            h.update(self.tcp.handlers())
+        return h

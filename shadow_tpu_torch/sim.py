@@ -1,7 +1,7 @@
 """Top-level simulation builder: Config → runnable Simulation.
 
-The JAX package's ``sim.py:build_simulation`` for PHOLD and the UDP
-network stack (``udp_flood``, ``udp_echo``): load the topology, attach
+The JAX package's ``sim.py:build_simulation`` for PHOLD and the network
+stack (``udp_flood``, ``udp_echo``, ``tcp_bulk``): load the topology, attach
 and register the hosts, bake the paths, and build a ``Simulation`` whose
 window step runs on the device. Other app models and the engine options
 the port does not have yet raise ``BuildError`` naming their
@@ -19,7 +19,12 @@ from shadow_tpu_torch.core import simtime, units
 from shadow_tpu_torch.core.config import Config, load_config
 from shadow_tpu_torch.core.engine import Simulation
 from shadow_tpu_torch.core.state import NetParams, resolve_device
-from shadow_tpu_torch.net.apps import PholdApp, UdpEchoApp, UdpFloodApp
+from shadow_tpu_torch.net.apps import (
+    PholdApp,
+    TcpBulkApp,
+    UdpEchoApp,
+    UdpFloodApp,
+)
 from shadow_tpu_torch.routing.dns import Dns
 from shadow_tpu_torch.routing.topology import BakedPaths, Topology
 
@@ -69,10 +74,6 @@ def build_simulation(source, device=None) -> Simulation:
     unknown = app_names - {"phold", "udp_flood", "udp_echo", "tcp_bulk"}
     if unknown:
         raise BuildError(f"unknown app model(s): {sorted(unknown)}")
-    if "tcp_bulk" in app_names:
-        raise BuildError(
-            "app model tcp_bulk: TCP is not ported to shadow_tpu_torch yet "
-            "(ROADMAP.md queue A 7, device function B11)")
     if len(app_names) != 1:
         raise BuildError(
             f"app models {sorted(app_names)}: one app model per simulation, "
@@ -180,7 +181,8 @@ def _build_phold(cfg: Config, baked: BakedPaths, common: dict):
 
 
 def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
-    """The network-stack branch for ``udp_flood`` / ``udp_echo``."""
+    """The network-stack branch for ``udp_flood``, ``udp_echo`` and
+    ``tcp_bulk``."""
     from shadow_tpu_torch.net.stack import NetStack
 
     H = common["num_hosts"]
@@ -219,6 +221,7 @@ def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
         sockets_per_host=x.sockets_per_host,
         router_queue_slots=x.router_queue_slots,
         router_variant=x.router_queue_variant,
+        with_tcp=name == "tcp_bulk",
         discipline=_qdisc_discipline(cfg),
         payload_words=12,
         device=dev,
@@ -235,6 +238,12 @@ def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
             start_time=start, stop_sending=stop_send,
             local_span=int(client_opts.get("local_span", 0)),
         )
+    elif name == "tcp_bulk":
+        app = TcpBulkApp(
+            H, servers,
+            total_bytes=units.parse_bytes(client_opts.get("total", "1 MiB")),
+            start_time=start,
+        )
     else:
         if len(servers) != 1:
             raise BuildError("udp_echo supports exactly one server host")
@@ -244,7 +253,8 @@ def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
             start_time=start, stop_sending=stop_send,
         )
     app.attach(stack)
-    stack.on_receive(app.on_receive)
+    if hasattr(app, "on_receive"):
+        stack.on_receive(app.on_receive)
     handlers = dict(stack.handlers())
     handlers.update(app.handlers())
     subs = stack.init_subs()

@@ -8,7 +8,10 @@ small PHOLD runs, plus seeded numpy variations (draw counters about to
 wrap, random seq numbers, lossy and multi-vertex topologies); the loop
 path's kernels take seeded random states (``random_*`` below: NEVER
 lanes, full rings and boxes, key ties, token debt, drop mode) and whole
-runs of a congested UDP flood.
+runs of a congested UDP flood; the TCP kernels take seeded lossy tables
+(``chip_smoke.synthetic_tcp_*`` and ``random_tcp_*``: every branch of
+the ACK and reorder blocks, sequence numbers across the wrap, slots
+outside [0, S) on masked-off hosts) and a whole lossy TCP run.
 
 Marked ``cuda``: the card decides inside the fixture, and the tests skip
 where there is none. This file imports neither jax nor the JAX package,
@@ -164,9 +167,11 @@ def test_run_through_kernels_matches_plain_run(card):
     b.ops = kernels.PLAIN_OPS
     kernels.reset_launches()
     wa = a.run()
-    assert [k.launches for k in kernels.KERNELS] == [wa] * 3 + [0] * 4
+    assert [k.launches for k in kernels.KERNELS] == (
+        [wa] * 3 + [0] * (len(kernels.KERNELS) - 3))
     wb = b.run()
-    assert [k.launches for k in kernels.KERNELS] == [wa] * 3 + [0] * 4
+    assert [k.launches for k in kernels.KERNELS] == (
+        [wa] * 3 + [0] * (len(kernels.KERNELS) - 3))
     assert wa == wb
     assert a.counters() == b.counters()
     assert a.audit_chain() == b.audit_chain()
@@ -452,6 +457,173 @@ def test_flood_through_kernels_matches_plain_run(card):
     assert a.counters() == b.counters()
     assert a.audit_chain() == b.audit_chain() == 0x45D3C1148D003C58
     assert int(a.state.subs["router"].codel_dropped) == 100
+    na, nb = interop.state_to_numpy(a.state), interop.state_to_numpy(b.state)
+    for path in na:
+        assert np.array_equal(na[path], nb[path]), path
+
+
+# ---------------------------------------------------------------------------
+# the TCP stack's kernels
+# ---------------------------------------------------------------------------
+
+MSS = 1460
+
+
+def _i32(a):
+    return (np.asarray(a, np.int64) & 0xFFFFFFFF).astype(np.uint32).view(
+        np.int32)
+
+
+def random_tcp_demux(rs, H=256, S=8):
+    """Socket tables with listeners and connections sharing ports, ties
+    between sockets (the lowest slot wins), unused sockets that would
+    match, and segments that match nothing."""
+    hs = (H, S)
+    ports = np.array([80, 9000, 40000, 40001], np.int32)
+    state = rs.choice([0, 1, 3, 4, 5, 9], size=hs).astype(np.int32)
+    arrays = dict(
+        used=rs.random(hs) < 0.7,
+        local_port=rs.choice(ports, size=hs).astype(np.int32),
+        peer_host=np.where(state == 1, -1, rs.integers(0, 4, hs)).astype(
+            np.int32),
+        peer_port=rs.choice(ports, size=hs).astype(np.int32),
+        state=state,
+        mask=rs.random(H) < 0.8,
+        dport=rs.choice(ports, size=H).astype(np.int32),
+        sport=rs.choice(ports, size=H).astype(np.int32),
+        src=rs.integers(0, 4, H).astype(np.int32),
+    )
+    return arrays
+
+
+def random_tcp_out(rs, H=256, S=8):
+    """Output-pump inputs: windows open and closed, data left and not,
+    re-walks over SACKed chunks, FINs pending and sent, sockets that are
+    unused or cannot send, and masked-off hosts with slots outside
+    [0, S)."""
+    hs = (H, S)
+    una = rs.integers(-2**31, 2**31, hs)
+    nxt = una + rs.integers(0, 30, hs) * MSS
+    smax = nxt + rs.integers(0, 5, hs) * MSS * (rs.random(hs) < 0.4)
+    buf = nxt + np.where(rs.random(hs) < 0.3, 0,
+                         rs.integers(-MSS, 40 * MSS, hs))
+    mask = rs.random(H) < 0.85
+    slot = np.where(~mask & (rs.random(H) < 0.3), rs.integers(-3, S + 3, H),
+                    rs.integers(0, S, H))
+    f = dict(
+        out_pending=rs.random(hs) < 0.5, used=rs.random(hs) < 0.9,
+        state=rs.choice([2, 3, 4, 5, 7, 9, 10], size=hs),
+        snd_una=una, snd_nxt=nxt, snd_max=smax, snd_buf_end=buf,
+        cwnd=rs.integers(MSS, 40 * MSS, hs),
+        snd_wnd=rs.integers(0, 1 << 20, hs),
+        sack_bits=rs.integers(0, 2**32, hs) * (rs.random(hs) < 0.5),
+        fin_pending=rs.random(hs) < 0.4, fin_sent=rs.random(hs) < 0.2,
+        rcv_nxt=rs.integers(-2**31, 2**31, hs),
+        peer_host=rs.integers(0, H, hs), rtt_armed=rs.random(hs) < 0.5,
+        rtt_seq=rs.integers(-2**31, 2**31, hs),
+        rtt_start=rs.integers(0, 10**10, hs),
+        fin_seq=rs.integers(-2**31, 2**31, hs),
+    )
+    per_host = (mask, _i32(slot), 2_000_000_000 + rs.integers(0, 10**8, H))
+    return per_host, f
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tcp_demux_matches_plain(card, seed):
+    a = to_torch(random_tcp_demux(np.random.default_rng(400 + seed)), card)
+    n = kernels.TCP_DEMUX.launches
+    got = kernels.tcp_demux(*a.values())
+    assert kernels.TCP_DEMUX.launches == n + 1
+    want = kernels.tcp_demux_plain(*a.values())
+    assert int(want.found.sum()) > int(want.is_listener.sum()) > 0
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tcp_ack_matches_plain(card, seed):
+    from chip_smoke import BRANCHES, synthetic_tcp_ack
+
+    args, kw = synthetic_tcp_ack(2048, 8, card, seed=500 + seed)
+    got, want = kernels.tcp_ack(*args, **kw), kernels.tcp_ack_plain(*args,
+                                                                    **kw)
+    for b in BRANCHES["tcp_ack"].values():  # every branch ran
+        assert int(((want.flags >> b) & 1).sum()) > 0, b
+    _eq(got.fields, want.fields)
+    _eq(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tcp_reorder_matches_plain(card, seed):
+    from chip_smoke import BRANCHES, synthetic_tcp_reorder
+
+    for W in (64, 20):
+        args, kw = synthetic_tcp_reorder(2048, 8, W, card, seed=600 + seed)
+        got = kernels.tcp_reorder(*args, **kw)
+        want = kernels.tcp_reorder_plain(*args, **kw)
+        for b in BRANCHES["tcp_reorder"].values():
+            assert int(((want.flags >> b) & 1).sum()) > 0, b
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tcp_out_matches_plain(card, seed):
+    (mask, slot, now), f = random_tcp_out(np.random.default_rng(700 + seed))
+    per = (torch.as_tensor(mask, device=card),
+           torch.as_tensor(slot, device=card),
+           torch.as_tensor(now, device=card))
+    fields = tuple(torch.as_tensor(
+        _i32(f[n]) if kernels.TCP_DTYPES[n] == torch.int32 else f[n],
+        dtype=kernels.TCP_DTYPES[n], device=card) for n in kernels.OUT_IN)
+    got = kernels.tcp_out(*per, *fields, mss=MSS)
+    want = kernels.tcp_out_plain(*per, *fields, mss=MSS)
+    for b in range(5):
+        assert int(((want.flags >> b) & 1).sum()) > 0, b
+    _eq(got.fields, want.fields)
+    _eq(got[1:], want[1:])
+
+
+# tests/test_torch_tcp.py's "lossy" scenario: 5 % loss, 3 clients
+LOSSY_TCP = {
+    "general": {"stop_time": 30, "seed": 2, "bootstrap_end_time": 0},
+    "network": {"graph": {"type": "gml", "inline": (
+        'graph [ node [ id 0 bandwidth_down "100 Mbit" '
+        'bandwidth_up "100 Mbit" ] node [ id 1 bandwidth_down "100 Mbit" '
+        'bandwidth_up "100 Mbit" ] edge [ source 0 target 0 latency "1 ms" ]'
+        ' edge [ source 1 target 1 latency "1 ms" ] edge [ source 0 '
+        'target 1 latency "20 ms" packet_loss 0.05 ] ]')}},
+    "experimental": {"event_capacity": 4096,
+                     "events_per_host_per_window": 8},
+    "hosts": {
+        "server": {"network_node_id": 0, "app_model": "tcp_bulk",
+                   "app_options": {"role": "server"}},
+        **{f"client{i}": {"network_node_id": 1, "app_model": "tcp_bulk",
+                          "app_options": {"total": "30 KiB"}}
+           for i in range(3)},
+    },
+}
+
+
+def test_tcp_run_through_kernels_matches_plain_run(card):
+    """A lossy TCP transfer (fast, partial and SACK retransmits) through
+    the kernels equals the plain versions' run on the card, state array
+    by state array, and every kernel of its path launched."""
+    from shadow_tpu_torch import interop
+
+    a = build_simulation(LOSSY_TCP, device=card)
+    b = build_simulation(LOSSY_TCP, device=card)
+    b.ops = kernels.PLAIN_OPS
+    kernels.reset_launches()
+    wa = a.run()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    for name in ("extract_slots", "audit_commit", "loop_select",
+                 "loop_route", "codel_dequeue", "ring_append", "tcp_demux",
+                 "tcp_ack", "tcp_reorder", "tcp_out"):
+        assert launches[name] > 0, name
+    assert b.run() == wa
+    assert {k.name: k.launches for k in kernels.KERNELS} == launches
+    assert a.counters() == b.counters()
+    # the JAX package's chain (tests/test_torch_tcp.py, GOLDEN["lossy"])
+    assert a.audit_chain() == b.audit_chain() == 0x8CF80602A987429A
     na, nb = interop.state_to_numpy(a.state), interop.state_to_numpy(b.state)
     for path in na:
         assert np.array_equal(na[path], nb[path]), path

@@ -32,6 +32,7 @@ from shadow_tpu.sim import build_simulation as jax_build
 from shadow_tpu_torch import interop, kernels
 from shadow_tpu_torch.core.state import SimState
 from shadow_tpu_torch.net import codel, nic
+from shadow_tpu_torch.net import tcp as tcp_mod
 from shadow_tpu_torch.net.stack import NetStack
 from shadow_tpu_torch.sim import BuildError, build_simulation
 from test_qdisc import GML_2V, _GOLDEN_ECHO, _GOLDEN_FLOOD, _flood_cfg
@@ -339,17 +340,18 @@ def test_bulk_gate_matches_jax_on_token_debt():
 
 
 def test_port_refuses_what_it_does_not_run():
-    def cfg(app="udp_flood", **exp):
+    def cfg(app="udp_flood", cpu_ns=0, **exp):
         return {
             "general": {"stop_time": 2},
             "network": {"graph": {"type": "1_gbit_switch"}},
             "experimental": exp,
             "hosts": {"s": {"app_model": app,
                             "app_options": {"role": "server"}},
-                      "c": {"quantity": 2, "app_model": app}},
+                      "c": {"quantity": 2, "app_model": app,
+                            "cpu_ns_per_event": cpu_ns}},
         }
 
-    for bad, match in ((cfg("tcp_bulk"), "B11"),
+    for bad, match in ((cfg("tcp_bulk", cpu_ns=1000), "A 4"),
                        (cfg(interface_qdisc="roundrobin",
                             packet_trails=True), "A 7")):
         with pytest.raises(BuildError, match=match):
@@ -358,9 +360,14 @@ def test_port_refuses_what_it_does_not_run():
     c["qdisc"] = {"discipline": "pifo"}
     with pytest.raises(BuildError, match="B9"):
         build_simulation(c, device="cpu")
-    with pytest.raises(NotImplementedError, match="B11"):
-        NetStack(2, np.ones(2, np.int64), np.ones(2, np.int64),
-                 with_tcp=True)
+    # a TCP stack builds (tcp_bulk is ported); its segments with the
+    # packet-trail word are not
+    stack = NetStack(2, np.ones(2, np.int64), np.ones(2, np.int64),
+                     with_tcp=True)
+    assert "tcp" in stack.init_subs()
+    z = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="A 7"):
+        tcp_mod.make_segment(z, z, z, z, z, z, z, z, z, payload_words=13)
     # the flood itself builds and runs: every window on the loop path
     sim = build_simulation(cfg(), device="cpu")
     sim.run()

@@ -160,5 +160,6 @@ def test_port_refuses_what_it_does_not_run():
         build_simulation({
             "general": {"stop_time": 2},
             "network": {"graph": {"type": "1_gbit_switch"}},
-            "hosts": {"h": {"quantity": 2, "app_model": "tcp_bulk"}},
+            "hosts": {"h": {"quantity": 2, "app_model": "phold",
+                            "cpu_ns_per_event": 1000}},
         }, device="cpu")
