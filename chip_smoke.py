@@ -25,8 +25,9 @@ beside the card's name and power limit:
    just before it and read just after: the committed events, overflow,
    bulk-contract count and audit chain must equal the JAX package's
    reference values below, and each kernel must launch once a window;
-5. the same run with the plain versions on the card: counters, chain and
-   the whole final state equal to phase 4's;
+5. the bench shape to 5 s (of 10), through the kernels and through the
+   plain versions on the card: counters, chain and the whole final state
+   equal;
 6. every kernel of config 2's path (extract_slots at Kc = 13,
    audit_commit on the micro-steps' taken events, loop_select,
    loop_route, ring_append) at its widths, on inputs captured from a real
@@ -41,8 +42,8 @@ beside the card's name and power limit:
    launch counts set to 0 just before it and read just after: counters
    and audit chain equal to the JAX package's reference values below, and
    every kernel of the path launched;
-8. the same run with the plain versions on the card: counters, chain and
-   every state array equal to phase 7's;
+8. config 2 to 2 s (of 4), through the kernels and through the plain
+   versions on the card: counters, chain and every state array equal;
 9. every kernel of config 3's path (the loop path's six at Kc = 17,
    B = 8, O = 32 and no bulk batch, and the four TCP kernels tcp_demux,
    tcp_ack, tcp_reorder and tcp_out) on its busiest call over 300
@@ -195,8 +196,11 @@ PHASE9_STEPS = 300
 # phase 9 profiles this much simulated time (a config-3 micro-step
 # launches thousands of kernels)
 PHASE9_PROFILE_NS = 2_000_000
-# phase 11's stop: None runs the plain versions over the whole run
-PHASE11_UNTIL = None
+# phases 5 and 8 hold the plain versions to the kernels over the first
+# part of the PHOLD and config-2 runs (config 3's two full runs take most
+# of the script's time)
+PHASE5_STOP_S = 5
+PHASE8_STOP_S = 2
 
 # the kernels of each main path
 PHOLD_PATH = ("extract_slots", "phold_forward", "audit_commit")
@@ -483,9 +487,9 @@ def phase_kernels(card: str) -> dict:
     return results
 
 
-def bench_run(card: str, ops, label: str):
+def bench_run(card: str, ops, label: str, shape: dict = BENCH):
     t0 = time.perf_counter()
-    sim = build_phold_flagship(**BENCH)
+    sim = build_phold_flagship(**shape)
     sim.ops = ops
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -854,9 +858,9 @@ def phase_loop_kernels(card: str) -> dict:
     return results
 
 
-def flood_run(card: str, ops, label: str):
+def flood_run(card: str, ops, label: str, cfg: dict = CONFIG2):
     t0 = time.perf_counter()
-    sim = build_simulation(CONFIG2)
+    sim = build_simulation(cfg)
     sim.ops = ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -934,9 +938,9 @@ def phase_tcp_kernels(card: str) -> dict:
     return results
 
 
-def tcp_run(card: str, cfg: dict, ops, label: str, until=None):
-    """Config 3 (or its cut, ``cfg``) from t = 0 in one ``run()``, launch
-    counts set to 0 just before it and read just after."""
+def tcp_run(card: str, cfg: dict, ops, label: str):
+    """Config 3 from t = 0 to the stop in one ``run()``, launch counts set
+    to 0 just before it and read just after."""
     t0 = time.perf_counter()
     sim = build_simulation(cfg)
     sim.ops = ops
@@ -944,7 +948,7 @@ def tcp_run(card: str, cfg: dict, ops, label: str, until=None):
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     kernels.reset_launches()
-    windows = sim.run(until=until)
+    windows = sim.run()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -1045,7 +1049,6 @@ def main() -> None:
     for what, (got, want) in checks.items():
         if got != want:
             fail(f"phase 4: {what} = {got}, want {want}")
-    snap = interop.state_to_numpy(sim.state)
     d_t = sim.state.pool.time
     if int((d_t < 0).sum()) or int((d_t == NEVER).sum()) != (
             d_t.numel() - BENCH["num_hosts"] * BENCH["msgload"]):
@@ -1053,20 +1056,25 @@ def main() -> None:
              "population")
     del sim
 
+    cut = dict(BENCH, stop_s=PHASE5_STOP_S)
+    ksim, kwindows, kc, kchain, _ = bench_run(
+        card, kernels.KERNEL_OPS,
+        f"phase 5 bench shape to {PHASE5_STOP_S} s through the kernels",
+        cut)
     psim, pwindows, pc, pchain, plaunches = bench_run(
-        card, kernels.PLAIN_OPS, "phase 5 bench run, plain versions")
+        card, kernels.PLAIN_OPS,
+        f"phase 5 bench shape to {PHASE5_STOP_S} s, plain versions", cut)
     if any(plaunches.values()):
         fail(f"phase 5: a kernel launched in the plain run: {plaunches}")
-    if (pwindows, pc, pchain) != (windows, c, chain):
+    if (pwindows, pc, pchain) != (kwindows, kc, kchain):
         fail("phase 5: the plain run's windows, counters or chain differ")
-    psnap = interop.state_to_numpy(psim.state)
-    diff = [k for k in snap if not (snap[k].dtype == psnap[k].dtype
-                                    and (snap[k] == psnap[k]).all())]
+    diff = same_state(ksim.state, psim.state)
     if diff:
-        fail(f"phase 5: final state differs from phase 4 in {diff}")
-    print(f"[{card}] phase 5 plain run equal to phase 4: counters, chain, "
-          f"{len(snap)} state arrays", flush=True)
-    del psim, snap, psnap
+        fail(f"phase 5: final state differs from the kernels' in {diff}")
+    print(f"[{card}] phase 5 plain run equal to the kernels' run to "
+          f"{PHASE5_STOP_S} s: counters, chain, "
+          f"{len(interop.state_paths(psim.state))} state arrays", flush=True)
+    del ksim, psim
 
     loop_results = phase_loop_kernels(card)
 
@@ -1085,24 +1093,28 @@ def main() -> None:
     win = sim.obs_snapshot()["win"]
     if win["loop_dispatches"] != windows2 or win["matrix_dispatches"]:
         fail(f"phase 7: not every window took the loop path: {win}")
-    snap = interop.state_to_numpy(sim.state)
     del sim
 
+    cut = {**CONFIG2, "general": {**CONFIG2["general"],
+                                  "stop_time": PHASE8_STOP_S}}
+    ksim, kwindows, kc, kchain, _ = flood_run(
+        card, kernels.KERNEL_OPS,
+        f"phase 8 config 2 to {PHASE8_STOP_S} s through the kernels", cut)
     psim, pwindows, pc, pchain, plaunches = flood_run(
-        card, kernels.PLAIN_OPS, "phase 8 config 2, plain versions")
+        card, kernels.PLAIN_OPS,
+        f"phase 8 config 2 to {PHASE8_STOP_S} s, plain versions", cut)
     if any(plaunches.values()):
         fail(f"phase 8: a kernel launched in the plain run: {plaunches}")
-    if (pwindows, pc, pchain) != (windows2, c2, chain2):
+    if (pwindows, pc, pchain) != (kwindows, kc, kchain):
         fail("phase 8: the plain run's windows, counters or chain differ")
-    psnap = interop.state_to_numpy(psim.state)
-    diff = [k for k in snap if not (snap[k].dtype == psnap[k].dtype
-                                    and snap[k].shape == psnap[k].shape
-                                    and (snap[k] == psnap[k]).all())]
-    if diff or sorted(snap) != sorted(psnap):
-        fail(f"phase 8: final state differs from phase 7 in {diff}")
-    print(f"[{card}] phase 8 plain run equal to phase 7: counters, chain, "
-          f"{len(snap)} state arrays (pool, host, obs, subs)", flush=True)
-    del psim, snap, psnap
+    diff = same_state(ksim.state, psim.state)
+    if diff:
+        fail(f"phase 8: final state differs from the kernels' in {diff}")
+    print(f"[{card}] phase 8 plain run equal to the kernels' run to "
+          f"{PHASE8_STOP_S} s: counters, chain, "
+          f"{len(interop.state_paths(psim.state))} state arrays (pool, "
+          f"host, obs, subs)", flush=True)
+    del ksim, psim
 
     t_tcp = time.perf_counter()
     print(f"[{card}] phases 1-8 wall_s={t_tcp - t_start:.3f}", flush=True)
@@ -1125,16 +1137,9 @@ def main() -> None:
           f"TCP counters and chain; every transfer complete", flush=True)
 
     psim, pwindows, pc, ptc, pchain, plaunches = tcp_run(
-        card, CONFIG3, kernels.PLAIN_OPS, "phase 11 config 3, plain versions",
-        until=PHASE11_UNTIL)
+        card, CONFIG3, kernels.PLAIN_OPS, "phase 11 config 3, plain versions")
     if any(plaunches.values()):
         fail(f"phase 11: a kernel launched in the plain run: {plaunches}")
-    if PHASE11_UNTIL is not None:
-        del sim
-        sim, windows3, c3, tc3, chain3, _ = tcp_run(
-            card, CONFIG3, kernels.KERNEL_OPS,
-            "phase 11 config 3 through the kernels to the same time",
-            until=PHASE11_UNTIL)
     if (pwindows, pc, ptc, pchain) != (windows3, c3, tc3, chain3):
         fail("phase 11: the plain run's windows, counters or chain differ")
     diff = same_state(sim.state, psim.state)
