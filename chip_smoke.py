@@ -2,19 +2,26 @@
 
     python3 chip_smoke.py
 
-Three main paths run through the port's entry points (``build_simulation``
-or ``build_phold_flagship`` → ``Simulation.run`` → ``counters()`` /
-``audit_chain()``): the PHOLD flagship at the bench shape (16384 hosts,
-msgload 8, stop 10 s, runtime 10 s, seed 42) on the matrix path;
-BASELINE config 2 (``bench.py:stage_udp_flood``: 10,240 hosts flooding
-1,280 servers over the UDP stack, stop 4 s, seed 7) on the micro-step
-loop path; and BASELINE config 3 (``bench.py:stage_tcp_bulk``: 8,960
-clients each pushing 64 KiB over TCP to 1,280 servers, stop 4 s, seed 7)
-on the loop path through the TCP stack. Phases, each printing its numbers
-beside the card's name and power limit:
+The main paths run through the port's entry points (``build_simulation``
+or ``build_phold_flagship`` → ``Simulation.run`` or
+``Simulation.run_optimistic`` → ``counters()`` / ``audit_chain()``): the
+PHOLD flagship at the bench shape (16384 hosts, msgload 8, stop 10 s,
+runtime 10 s, seed 42) on the matrix path; BASELINE config 2
+(``bench.py:stage_udp_flood``: 10,240 hosts flooding 1,280 servers over
+the UDP stack, stop 4 s, seed 7) on the micro-step loop path; BASELINE
+config 3 (``bench.py:stage_tcp_bulk``: 8,960 clients each pushing 64 KiB
+over TCP to 1,280 servers, stop 4 s, seed 7) on the loop path through the
+TCP stack; BASELINE config 4's staged shape
+(``bench.py:stage_udp_flood_50k(sync="optimistic")``: 50,176 hosts
+flooding 6,272 servers, stop 3 s, seed 7) under the optimistic driver;
+and two test shapes for code paths that config 4 does not take: the
+PHOLD bench shape over a two-vertex graph whose speculative windows roll
+back ("the mixed run"), and config 3 at 100 Mbit, whose senders queue at
+their NICs. Phases, each printing its numbers beside the card's name and
+power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the eleven CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
+2. build the fifteen CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
    (one process per source, all at once) and print ptxas's register and
    shared-memory report;
 3. each kernel at the bench shape's widths, on inputs taken from a real
@@ -59,21 +66,45 @@ beside the card's name and power limit:
     counters, TCP counters and audit chain equal to the JAX package's
     reference values below;
 11. config 3 with the plain versions on the card: counters, chain and
-    every state array equal to phase 10's.
+    every state array equal to phase 10's;
+12. the kernels of config 4's path (K12 ``spec_check``, K13
+    ``nic_refill``, K15 ``link_send`` and the loop path's) on their
+    busiest call in an optimistic window of config 4, those of the mixed
+    run likewise, and every kernel of the NIC-bound transfer (with K14
+    ``send_dequeue``) on its busiest call to 1.06 s, its launches counted
+    from t = 0; plus full-width synthetic tables for the branches the
+    runs miss (K12 with violations and filler destinations, K13 with
+    NEVER lanes and long idle gaps, K14 with wrapped rings, K15 with
+    loss 0.5, unreachable pairs and control packets): each equal bit for
+    bit to its plain version, timed beside its bound;
+13. config 4 at 50,176 hosts from t = 0 in one ``run_optimistic()``
+    through the kernels, launch counts set to 0 just before it and read
+    just after: windows, rollbacks, counters and chain equal to the JAX
+    package's (``REF4``), every kernel of its path launched; then the
+    kernels and the plain versions to 1.5 s, compared state by state;
+14. the mixed run through the kernels (rollbacks > 0; equal to
+    ``REF_MIXED``) and through the plain versions, state by state; the
+    16-host mixed flood, whose rollbacks take the loop path, likewise
+    and against the JAX package's chain; and a rolled-back attempt that
+    leaves every tensor of its base state as it was (same object,
+    version and values).
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
 The line has one entry for each kernel on each main path (``path``
-"phold", "config2" or "config3"): its ``launches`` in that path's run
-(phase 4, 7 or 10), and its times and bound on that path's inputs (phase
-3, 6 or 9). Any failure raises, exits non-zero and prints no ok line;
+"phold", "config2", "config3", "config4", "mixed" or
+"config3_100mbit"): its ``launches`` in that path's run (phase 4, 7, 10,
+13, 14 or 12), and its times and bound on that path's inputs (phase 3,
+6, 9 or 12). Any failure raises, exits non-zero and prints no ok line;
 with no card, or without the rest of the repository beside it, it fails
 at once.
 
 The reference values come from the JAX package on a CPU (README.md, "The
 PyTorch/CUDA port", gives the commands):
 ``build_phold_flagship(16384, msgload=8, stop_s=10, runtime_s=10)`` then
-``sim.run()``, and configs 2 and 3 (``CONFIG2`` and ``CONFIG3`` below)
-through ``shadow_tpu.sim.build_simulation`` then ``sim.run()``.
+``sim.run()``, configs 2 and 3 (``CONFIG2`` and ``CONFIG3`` below)
+through ``shadow_tpu.sim.build_simulation`` then ``sim.run()``, and
+config 4 and the mixed run (``CONFIG4``, ``MIXED``) through
+``build_simulation`` then ``sim.run_optimistic()``.
 """
 
 from __future__ import annotations
@@ -189,6 +220,164 @@ REF3 = {
     },
     "audit_chain": 0xEDFDB671D3631E58,
 }
+
+
+def config4(num_hosts: int = 50176, graph: str | None = None,
+            event_capacity: int = 1 << 17) -> dict:
+    """BASELINE config 4 as ``bench.py:stage_udp_flood_50k`` builds it
+    through ``_run_stage`` (one host in eight a server, stop 3 s, a pool of
+    2^17 rows), over its one-vertex graph or ``graph``'s GML; the bench
+    runs it under ``run_optimistic``."""
+    n_servers = num_hosts // 8
+    gml = graph or (
+        'graph [\n'
+        '  node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]\n'
+        '  edge [ source 0 target 0 latency "10 ms" packet_loss 0.001 ]\n'
+        ']\n')
+    return {
+        "general": {"stop_time": 3, "seed": 7},
+        "network": {"graph": {"type": "gml", "inline": gml}},
+        "experimental": {"event_capacity": event_capacity,
+                         "events_per_host_per_window": 12, "outbox_slots": 8,
+                         "router_queue_slots": 16, "inbox_slots": 4},
+        "hosts": {
+            "server": {"quantity": n_servers, "app_model": "udp_flood",
+                       "app_options": {"role": "server"}},
+            "client": {"quantity": num_hosts - n_servers,
+                       "app_model": "udp_flood",
+                       "app_options": {"interval": "40 ms", "size": 1024,
+                                       "runtime": 2}},
+        },
+    }
+
+
+# The staged pool of 2^17 rows holds config 4's conservative windows, not
+# its speculative ones: in an 80 ms window every client takes two timers,
+# so the window's inflow is about three rows a client (131,712 at 50,176
+# hosts) on top of the 43,904 pending timers. The pool-headroom gate then
+# stalls every host: the JAX package's attempt loop spins there, the port
+# raises PoolExhausted (tests/test_torch_optimistic.py). Config 4 runs with
+# the pool doubled; nothing else changes.
+CONFIG4 = config4(event_capacity=1 << 18)
+# The JAX package's values for it at full width (PERF.md section 2):
+# build_simulation(CONFIG4) then one sim.run_optimistic() on a CPU
+REF4 = {
+    "windows": 25, "rollbacks": 0,
+    "counters": {
+        "events_committed": 4_388_209,
+        "events_emitted": 4_388_209,
+        "packets_sent": 2_195_200,
+        "packets_delivered": 2_193_009,
+        "packets_dropped_loss": 2_191,
+        "bytes_sent": 2_309_350_400,
+        "bytes_delivered": 2_245_641_216,
+        "micro_steps": 225,
+        "outbox_stall_deferred": 282_135,
+        "pool_overflow_dropped": 0,
+        "outbox_overflow_dropped": 0,
+        "inbox_overflow_deferred": 0,
+        "bulk_contract_violations": 0,
+    },
+    "audit_chain": 0x19A95CA33CC9CDD8,
+}
+
+# tests/test_optimistic.py's two-vertex graph: 10 ms within a vertex,
+# 50 ms across, so speculative windows take rollbacks
+MIXED_GML = (
+    'graph [\n'
+    '  node [ id 0 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]\n'
+    '  node [ id 1 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]\n'
+    '  edge [ source 0 target 0 latency "10 ms" packet_loss 0.0 ]\n'
+    '  edge [ source 0 target 1 latency "50 ms" packet_loss 0.0 ]\n'
+    '  edge [ source 1 target 1 latency "10 ms" packet_loss 0.0 ]\n'
+    ']\n')
+
+
+def mixed_phold(num_hosts: int = 16384, msgload: int = 8) -> dict:
+    """The PHOLD bench shape (the flagship's pool and K, seed 42) over
+    MIXED_GML, a quarter of the hosts on vertex 1, stop and runtime 2 s:
+    a test shape for the rollback path, not a user configuration."""
+    far = num_hosts // 4
+    opts = {"msgload": msgload, "runtime": 2}
+    return {
+        "general": {"stop_time": 2, "seed": 42},
+        "network": {"graph": {"type": "gml", "inline": MIXED_GML}},
+        "experimental": {
+            "event_capacity": max(3 * num_hosts * msgload // 2, 4096),
+            "events_per_host_per_window": msgload + 16,
+            "outbox_slots": msgload + 16, "inbox_slots": 4},
+        "hosts": {
+            "near": {"quantity": num_hosts - far, "network_node_id": 0,
+                     "app_model": "phold", "app_options": opts},
+            "far": {"quantity": far, "network_node_id": 1,
+                    "app_model": "phold", "app_options": opts},
+        },
+    }
+
+
+MIXED = mixed_phold()
+# the JAX package's values: build_simulation(mixed_phold()) then one
+# sim.run_optimistic() (factor 8, adaptive) on a CPU
+REF_MIXED = {
+    "windows": 98, "rollbacks": 21,
+    "counters": {
+        "events_committed": 5_337_256,
+        "events_emitted": 5_337_256,
+        "packets_sent": 5_337_256,
+        "packets_delivered": 0,
+        "packets_dropped_loss": 0,
+        "bytes_sent": 341_584_384,
+        "micro_steps": 100,
+        "outbox_stall_deferred": 0,
+        "pool_overflow_dropped": 0,
+        "outbox_overflow_dropped": 0,
+        "inbox_overflow_deferred": 0,
+        "bulk_contract_violations": 0,
+    },
+    "audit_chain": 0xC5F77C948FA84DD8,
+}
+
+
+def mixed_flood() -> dict:
+    """Config 4's shape at 16 hosts over MIXED_GML, 2 s: the servers and
+    six clients on vertex 1, eight clients on vertex 0. A server takes a
+    far packet ahead of a near one sent later, so speculation rolls back
+    on the loop path (``tests/test_torch_optimistic.py`` pins the JAX
+    package's values)."""
+    cfg = config4(16, MIXED_GML)
+    cfg["general"]["stop_time"] = 2
+    cfg["experimental"]["event_capacity"] = 4096
+    hosts = cfg["hosts"]
+    client = hosts.pop("client")
+    hosts["server"]["network_node_id"] = 1
+    client["app_options"]["runtime"] = 1
+    hosts["near"] = {**client, "quantity": 6, "network_node_id": 1}
+    hosts["far"] = {**client, "quantity": 8, "network_node_id": 0}
+    return cfg
+
+
+MIXED_FLOOD_CHAIN = 0x297D13156060D542
+
+
+def nic_bound() -> dict:
+    """Config 3's shape at 100 Mbit: a TCP sender's first flights outrun
+    its NIC's tokens, so packets queue in the send ring and the pump
+    dequeues them (at 1 Gbit, configs 2 to 4 never queue there)."""
+    cfg = config3()
+    g = cfg["network"]["graph"]
+    g["inline"] = g["inline"].replace('"1 Gbit"', '"100 Mbit"')
+    return cfg
+
+
+# phase 12 runs the NIC-bound transfer this far (the clients open at 1 s)
+NIC_BOUND_UNTIL = 1_060_000_000
+# phase 12 captures config 4's and the mixed run's kernels over the
+# optimistic window that starts at the first event at or past this time
+PHASE12_FROM = 1_200_000_000
+# phase 13 holds the plain versions to the kernels over config 4's run to
+# this time (of 3 s)
+PHASE13_STOP = 1_500_000_000
+
 # phase 9 captures windows where the transfers run (the clients open at
 # 1 s; the first losses show within a few 20 ms round trips)
 PHASE9_FROM = 1_040_000_000
@@ -203,14 +392,21 @@ PHASE5_STOP_S = 5
 PHASE8_STOP_S = 2
 
 # the kernels of each main path
-PHOLD_PATH = ("extract_slots", "phold_forward", "audit_commit")
+PHOLD_PATH = ("extract_slots", "phold_forward", "audit_commit", "spec_check")
 LOOP_PATH = ("extract_slots", "audit_commit", "loop_select", "loop_route",
-             "codel_dequeue", "ring_append")
+             "codel_dequeue", "ring_append", "spec_check", "nic_refill",
+             "link_send")
 # config 2 never queues at a router (1 Gbit, 7 clients a server), so no
 # host takes a receive-pump event and codel_dequeue's handler never runs
 CONFIG2_PATH = tuple(k for k in LOOP_PATH if k != "codel_dequeue")
 TCP_PATH = ("tcp_demux", "tcp_ack", "tcp_reorder", "tcp_out")
 CONFIG3_PATH = LOOP_PATH + TCP_PATH
+# config 4 is config 2's flood at 50,176 hosts under the optimistic driver
+CONFIG4_PATH = CONFIG2_PATH
+MIXED_PATH = PHOLD_PATH
+# no NIC send ring queues at 1 Gbit (configs 2 to 4), so only the
+# NIC-bound transfer takes the send pump's dequeue
+NIC_PATH = CONFIG3_PATH + ("send_dequeue",)
 
 # H100 SXM published peaks: HBM bytes/s, and
 # float32 outside the tensor cores, the nearest published rate for the
@@ -234,6 +430,10 @@ REPLACES = {
     "tcp_ack": "shadow_tpu/net/tcp.py:779",
     "tcp_reorder": "shadow_tpu/net/tcp.py:1001",
     "tcp_out": "shadow_tpu/net/tcp.py:1132",
+    "spec_check": "shadow_tpu/core/engine.py:1137",
+    "nic_refill": "shadow_tpu/net/nic.py:127",
+    "send_dequeue": "shadow_tpu/net/qdisc/__init__.py:93",
+    "link_send": "shadow_tpu/net/link.py:23",
 }
 
 
@@ -268,6 +468,13 @@ def time_ms(fn, reps: int) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def per_host_bytes(t: torch.Tensor, H: int) -> int:
+    """Bytes of a per-host input that may be one value for every host."""
+    if t.dim() == 0 or t.stride(0) == 0:
+        return t.element_size()
+    return t.element_size() * H
 
 
 def max_abs_err(got, want) -> float:
@@ -389,6 +596,31 @@ def kernel_bound(name: str, args, kw, out):
         writes = (n_in_order * 12 + n_board * W
                   + nbytes(out.flags, out.adv, out.sack))
         return bound(reads + writes, 0)
+    if name == "spec_check":
+        t, dst, src, done_t = args
+        live = (t != NEVER) & (dst != src)
+        # each row once; the clock of each live row's destination
+        return bound(nbytes(t, dst, src) + 8 * int(live.sum()) + 8,
+                     4 * t.shape[0])
+    if name == "nic_refill":
+        rem, now, mask = args[0], args[4], args[5]
+        return bound(nbytes(*args[:4], mask)
+                     + per_host_bytes(now, rem.shape[0]) + nbytes(*out), 0)
+    if name == "send_dequeue":
+        q_payload = args[0]
+        H, _, P = q_payload.shape
+        # each host's head, tail and want; its head slot's row and dst
+        return bound(nbytes(*args[2:]) + H * (4 * P + 4) + nbytes(*out), 0)
+    if name == "link_send":
+        mask, dst, now, control, vertex = args[:5]
+        H = mask.shape[0]
+        rolled = out.deliver | out.drop
+        n_draw = int((rolled & ~(now < kw["bootstrap_end"]) & ~control).sum())
+        multi = args[6].shape[0] > 1
+        reads = (nbytes(mask, dst, vertex, args[8], args[9])
+                 + per_host_bytes(now, H) + per_host_bytes(control, H)
+                 + (H * 16 if multi else 12))  # the path's latency, rel
+        return bound(reads + nbytes(*out), UNIFORM_OPS * n_draw)
     raise ValueError(name)
 
 
@@ -455,6 +687,18 @@ def phase_kernels(card: str) -> dict:
         shape=f"H={H} K={K} events={n_valid}",
         ms=time_ms(lambda: kernels.audit_commit(*cargs), 200),
         plain_ms=time_ms(lambda: kernels.audit_commit_plain(*cargs), 20),
+    )
+
+    # K12 on the window's emissions against the clocks after its commit
+    fw = kernels.phold_forward_plain(*fargs, **fkw)
+    sargs = (fw.time, fw.dst, fw.src, want.done_t)
+    want = kernels.spec_check_plain(*sargs)
+    err = max_abs_err([kernels.spec_check(*sargs)], [want])
+    results["spec_check"] = dict(
+        err=err, bound=kernel_bound("spec_check", sargs, {}, want),
+        shape=f"N={fw.time.shape[0]} xmit_min={int(want)}",
+        ms=time_ms(lambda: kernels.spec_check(*sargs), 200),
+        plain_ms=time_ms(lambda: kernels.spec_check_plain(*sargs), 20),
     )
     for name, r in results.items():
         print(f"[{card}] phase 3 {name}: {r['shape']} max_abs_err="
@@ -534,6 +778,14 @@ def activity(name: str, args, out) -> int:
         return int((out.flags != 0).sum())  # hosts whose segment had data
     if name in ("tcp_ack", "tcp_out"):
         return int(args[0].sum())  # hosts handled
+    if name == "spec_check":
+        return int((args[0] != NEVER).sum())  # rows checked
+    if name == "nic_refill":
+        return args[0].shape[0] if args[5] is None else int(args[5].sum())
+    if name == "send_dequeue":
+        return int(out.sent.sum())  # packets dequeued
+    if name == "link_send":
+        return int(args[0].sum())  # packets sent
     return int(args[5].sum())  # ring_append, tcp_demux: the mask
 
 
@@ -740,8 +992,8 @@ def profile_windows(card: str, sim, label: str, span: int) -> None:
     short."""
     from torch.profiler import ProfilerActivity, profile
 
-    saved = sim.state.detached_copy()
-    first = sim._frontier(sim.stop_time)[0]
+    saved = sim.state.snapshot()
+    first = sim._frontier(sim.stop_time).mn
     until = first + span
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -792,7 +1044,7 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         if name == "loop_route":
             err = max(max_abs_err(got.boxes, want.boxes),
                       max_abs_err(got[1:], want[1:]))
-        elif name == "extract_slots":
+        elif name in ("extract_slots", "spec_check"):
             err = max_abs_err([got], [want])
         elif name in ("tcp_ack", "tcp_out"):
             err = max(max_abs_err(got.fields, want.fields),
@@ -835,7 +1087,7 @@ def phase_loop_kernels(card: str) -> dict:
     sim.run(until=2_000_000_000)
     best: dict = {}
     sim.ops = capture_ops(best)
-    mn, occ, _ = sim._frontier(sim.stop_time)
+    mn, occ, _, _ = sim._frontier(sim.stop_time)
     we = min(mn + sim.runahead, sim.stop_time)
     sim.step_loop(mn, we, occ)
     print(f"[{card}] phase 6 inputs: the busiest call of each kernel in "
@@ -900,11 +1152,11 @@ def phase_tcp_kernels(card: str) -> dict:
     best: dict = {}
     branches: dict = {}
     sim.ops = capture_ops(best, CONFIG3_PATH, branches)
-    first = sim._frontier(sim.stop_time)[0]
+    first = sim._frontier(sim.stop_time).mn
     steps = windows = 0
     t1 = time.perf_counter()
     while steps < PHASE9_STEPS:
-        mn, occ, _ = sim._frontier(sim.stop_time)
+        mn, occ, _, _ = sim._frontier(sim.stop_time)
         m0 = sim.counters()["micro_steps"]
         sim.step_loop(mn, min(mn + sim.runahead, sim.stop_time), occ)
         steps += sim.counters()["micro_steps"] - m0
@@ -995,6 +1247,324 @@ def check_reference(phase: str, c, tc, chain, ref) -> None:
     for what, (got, want) in checks.items():
         if got != want:
             fail(f"{phase}: {what} = {got}, want {want}")
+
+
+# ---------------------------------------------------------------------------
+# the optimistic driver: config 4, the mixed run
+# ---------------------------------------------------------------------------
+
+def capture_window(sim, names, until: int) -> dict:
+    """Run ``sim`` optimistically to ``until``, then one optimistic window
+    with the kernel wrappers capturing each kernel's busiest call."""
+    sim.run_optimistic(until=until)
+    best: dict = {}
+    sim.ops = capture_ops(best, names)
+    first = sim._frontier(sim.stop_time).mn
+    sim.run_optimistic(until=first + 8 * sim.runahead)
+    sim.ops = kernels.KERNEL_OPS
+    return best
+
+
+def synthetic_spec_check(H: int, N: int, device, seed: int = 19):
+    """Emission rows with violations and filler destinations outside
+    [0, H), against clocks half of them -1."""
+    rs = np.random.default_rng(seed)
+    done_t = np.where(rs.random(H) < 0.5, -1,
+                      rs.integers(0, 2 * 10**9, H)).astype(np.int64)
+    t = rs.integers(10**9, 3 * 10**9, N).astype(np.int64)
+    t[rs.random(N) < 0.3] = NEVER
+    dst = rs.integers(0, H, N).astype(np.int32)
+    dst[rs.random(N) < 0.05] = H  # filler rows
+    src = np.where(rs.random(N) < 0.1, dst, rs.integers(0, H, N))
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        t, dst, src.astype(np.int32), done_t)), {}
+
+
+def synthetic_nic_refill(H: int, device, seed: int = 23):
+    """Buckets in debt and full, long idle gaps whose refill product
+    wraps, NEVER lanes, and a mask."""
+    rs = np.random.default_rng(seed)
+    refill = rs.integers(1, 200_000, H)
+    tick = rs.integers(0, 3_000, H)
+    now = tick * 1_000_000 + rs.integers(0, 10**15, H)
+    now[rs.random(H) < 0.3] = NEVER
+    cols = (rs.integers(-100_000, 200_000, H), tick, refill, refill + 1500,
+            now)
+    return tuple(torch.as_tensor(np.asarray(a, np.int64), device=device)
+                 for a in cols) + (
+        torch.as_tensor(rs.random(H) < 0.7, device=device),), {}
+
+
+def synthetic_send_dequeue(H: int, NQ: int, P: int, device, seed: int = 29):
+    """Rings empty, part full and full, heads past many wraps."""
+    rs = np.random.default_rng(seed)
+    head = rs.integers(0, 2**30, H).astype(np.int32)
+    tail = (head + rs.integers(0, NQ + 1, H)).astype(np.int32)
+    cols = (rs.integers(-2**31, 2**31, (H, NQ, P)).astype(np.int32),
+            rs.integers(0, H, (H, NQ)).astype(np.int32), head, tail,
+            rs.random(H) < 0.8)
+    return tuple(torch.as_tensor(a, device=device) for a in cols), {}
+
+
+def synthetic_link_send(H: int, device, seed: int = 31):
+    """Three vertices, one pair unreachable, loss up to 0.5, control
+    packets, hosts on both sides of the end of bootstrap, and destinations
+    outside [0, H) on the hosts that send nothing."""
+    rs = np.random.default_rng(seed)
+    ms = 1_000_000
+    lat = np.array([[10, 40, NEVER], [40, 20, 60], [NEVER, 60, 30]])
+    lat = np.where(lat == NEVER, NEVER, lat * ms).astype(np.int64)
+    rel = np.array([[0.5, 0.9, 1.0], [0.9, 0.5, 0.75], [1.0, 0.75, 0.5]],
+                   np.float32)
+    boot = 1_000 * ms
+    vertex = (np.arange(H) % 3).astype(np.int32)
+    counter = rs.integers(0, 2**32, H, dtype=np.int64)
+    keys = np.stack([rs.integers(0, 2**32, H, dtype=np.int64)
+                     for _ in range(2)], axis=1)
+    mask = rs.random(H) < 0.9
+    # hosts that send nothing may carry any destination, negative too
+    dst = np.where(mask, rs.integers(0, H, H), rs.integers(-2 * H, 2 * H, H))
+    cols = (mask, dst.astype(np.int32),
+            rs.integers(boot - 20 * ms, boot + 200 * ms, H),
+            rs.random(H) < 0.1, vertex, vertex, lat, rel, keys, counter)
+    return tuple(torch.as_tensor(a, device=device) for a in cols), {
+        "bootstrap_end": boot}
+
+
+def phase_optimistic_kernels(card: str):
+    """Phase 12: the kernels of config 4's path on its busiest call in an
+    optimistic window from PHASE12_FROM, those of the mixed run likewise,
+    the NIC-bound transfer's send-ring dequeues (every kernel of its path
+    on its busiest call, its launch counts from t = 0), and synthetic
+    full-width tables for the branches the runs do not reach. Returns the
+    results by path, and the NIC-bound run's launches."""
+    t0 = time.perf_counter()
+    sim = build_simulation(CONFIG4)
+    best4 = capture_window(sim, CONFIG4_PATH, PHASE12_FROM)
+    H = sim.num_hosts
+    NQ = sim.state.subs["nic"].q_dst.shape[1]
+    missing = [k for k in CONFIG4_PATH if k not in best4]
+    if missing:
+        fail(f"phase 12: config 4's window did not call {missing}")
+    print(f"[{card}] phase 12 config-4 inputs: the busiest call of each "
+          f"kernel in the optimistic window from t={PHASE12_FROM} "
+          f"(H={H} K={sim.K} B={sim.B} O={sim.O}): "
+          + json.dumps({k: v[0] for k, v in best4.items()}), flush=True)
+    best4["spec_check (synthetic violations)"] = (
+        0, *synthetic_spec_check(H, H * sim.O, sim.device))
+    best4["nic_refill (synthetic idle gaps)"] = (
+        0, *synthetic_nic_refill(H, sim.device))
+    best4["link_send (synthetic lossy)"] = (
+        0, *synthetic_link_send(H, sim.device))
+    best4["send_dequeue (synthetic rings)"] = (
+        0, *synthetic_send_dequeue(H, NQ, 12, sim.device))
+    del sim
+    res4 = compare_calls(card, "phase 12 config 4", best4)
+    viol = kernels.spec_check_plain(
+        *best4["spec_check (synthetic violations)"][1])
+    ls = kernels.link_send_plain(*best4["link_send (synthetic lossy)"][1],
+                                 **best4["link_send (synthetic lossy)"][2])
+    unreach = best4["link_send (synthetic lossy)"][1][0] & ~(
+        ls.deliver | ls.drop)
+    if int(viol) == NEVER or not (ls.drop.any() and unreach.any()):
+        fail("phase 12: a synthetic table missed its branch")
+
+    sim = build_simulation(MIXED)
+    bestm = capture_window(sim, MIXED_PATH, PHASE12_FROM)
+    print(f"[{card}] phase 12 mixed-run inputs (H={sim.num_hosts} "
+          f"K={sim.K}): " + json.dumps({k: v[0] for k, v in bestm.items()}),
+          flush=True)
+    del sim
+    resm = compare_calls(card, "phase 12 mixed run", bestm)
+
+    sim = build_simulation(nic_bound())
+    bestn: dict = {}
+    sim.ops = capture_ops(bestn, NIC_PATH)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    sim.run(until=NIC_BOUND_UNTIL)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    print(f"[{card}] phase 12 NIC-bound transfer (config 3 at 100 Mbit) to "
+          f"t={NIC_BOUND_UNTIL}: wall_s={time.perf_counter() - t1:.3f} "
+          f"micro_steps={sim.counters()['micro_steps']} "
+          f"launches={launches}", flush=True)
+    missing = [k for k in NIC_PATH if launches[k] == 0]
+    if missing:
+        fail(f"phase 12: the NIC-bound transfer never launched {missing}")
+    del sim
+    resn = compare_calls(card, "phase 12 NIC-bound", bestn)
+    print(f"[{card}] phase 12 wall_s={time.perf_counter() - t0:.3f}",
+          flush=True)
+    kernels.reset_launches()
+    return {"config4": res4, "mixed": resm, "config3_100mbit": resn}, \
+        launches
+
+
+def optimistic_run(card: str, cfg: dict, ops, label: str,
+                   until: int | None = None):
+    """``cfg`` from t = 0 through ``run_optimistic`` (factor 8, adaptive),
+    launch counts set to 0 just before it and read just after."""
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg)
+    sim.ops = ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    windows, rollbacks = sim.run_optimistic(until=until)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    c = sim.counters()
+    chain = sim.audit_chain()
+    win = sim.obs_snapshot()["win"]
+    wall = t2 - t1
+    steps = c["micro_steps"]
+    print(f"[{card}] {label}: hosts={sim.num_hosts} build_s={t1 - t0:.3f} "
+          f"wall_s={wall:.3f} windows={windows} rollbacks={rollbacks} "
+          f"sub_steps={win['windows_run']} micro_steps={steps} "
+          f"ms_per_micro_step={wall / max(steps, 1) * 1e3:.4f} "
+          f"events_committed={c['events_committed']} "
+          f"events_per_s={c['events_committed'] / wall:.1f} "
+          f"counters={json.dumps(c)} win={json.dumps(win)} "
+          f"audit_chain={chain:#018x} launches={launches} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          flush=True)
+    return sim, (windows, rollbacks), c, chain, launches
+
+
+def check_optimistic(phase: str, res, c, chain, ref) -> None:
+    """Windows, rollbacks, counters and chain against the reference's."""
+    checks = {"windows": (res[0], ref["windows"]),
+              "rollbacks": (res[1], ref["rollbacks"]),
+              "audit_chain": (chain, ref["audit_chain"])}
+    checks.update({k: (c[k], v) for k, v in ref["counters"].items()})
+    for what, (got, want) in checks.items():
+        if got != want:
+            fail(f"{phase}: {what} = {got}, want {want}")
+
+
+def same_runs(phase: str, a, b) -> None:
+    """Two runs of ``optimistic_run`` equal: windows, rollbacks, counters,
+    chain and every state array; the second launched no kernel."""
+    (ksim, kres, kc, kchain, _), (psim, pres, pc, pchain, plaunches) = a, b
+    if any(plaunches.values()):
+        fail(f"{phase}: a kernel launched in the plain run: {plaunches}")
+    if (pres, pc, pchain) != (kres, kc, kchain):
+        fail(f"{phase}: the plain run's windows, rollbacks, counters or "
+             f"chain differ")
+    diff = same_state(ksim.state, psim.state)
+    if diff:
+        fail(f"{phase}: final state differs from the kernels' in {diff}")
+
+
+def tensors_of(obj, path="") -> dict:
+    """Every tensor reachable from a state: {path: tensor}."""
+    if isinstance(obj, torch.Tensor):
+        return {path: obj}
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif hasattr(obj, "__dataclass_fields__"):
+        items = vars(obj).items()
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(tensors_of(v, f"{path}.{k}"))
+    return out
+
+
+def check_snapshot(card: str) -> None:
+    """A rolled-back attempt of the mixed run leaves its base state as it
+    was: the windows are stepped as the driver steps them, outside
+    inference mode so every tensor keeps its version counter, until an
+    attempt rolls back."""
+    sim = build_simulation(MIXED)
+    neg1 = torch.full((sim.num_hosts,), -1, dtype=torch.int64,
+                      device=sim.device)
+    sim.state = sim.state.with_host(done_t=neg1)
+    ws = sim._frontier(sim.stop_time).mn
+    for n in range(1, 200):
+        base = sim.state.snapshot()
+        before = {p: (t, t._version, t.clone())
+                  for p, t in tensors_of(base).items()}
+        st, mn, viol = sim.attempt(base, ws, ws + 8 * sim.runahead)
+        if viol < NEVER:
+            break
+        sim.state = st.with_host(done_t=neg1)
+        ws = mn
+    else:
+        fail("phase 14: no attempt rolled back")
+    after = tensors_of(base)
+    if sorted(after) != sorted(before):
+        fail("phase 14: the rolled-back attempt changed the base's paths")
+    for p, (t, version, value) in before.items():
+        if after[p] is not t or t._version != version or not torch.equal(
+                t, value):
+            fail(f"phase 14: the rolled-back attempt changed base {p}")
+    print(f"[{card}] phase 14 snapshot: attempt {n} (window from t={ws}) "
+          f"rolled back at t={viol}; its base's {len(before)} tensors are "
+          f"the same objects, versions and values", flush=True)
+
+
+def optimistic_phases(card: str):
+    """Phases 12-14. Returns the kernels' results by path and the launches
+    of config 4's, the mixed run's and the NIC-bound run's runs."""
+    opt_results, launches_nic = phase_optimistic_kernels(card)
+
+    sim, res4, c4, chain4, launches4 = optimistic_run(
+        card, CONFIG4, kernels.KERNEL_OPS,
+        "phase 13 config 4 through the kernels")
+    for k in CONFIG4_PATH:
+        if launches4[k] == 0:
+            fail(f"phase 13: kernel {k} never launched")
+    win = sim.obs_snapshot()["win"]
+    if win["matrix_dispatches"] or win["rollbacks"] != res4[1]:
+        fail(f"phase 13: unexpected window-plane counters {win}")
+    check_optimistic("phase 13", res4, c4, chain4, REF4)
+    print(f"[{card}] phase 13 config 4 equal to the JAX package's windows, "
+          f"rollbacks, counters and chain", flush=True)
+    del sim
+    cut = [optimistic_run(card, CONFIG4, ops,
+                          f"phase 13 config 4 to {PHASE13_STOP} ({label})",
+                          until=PHASE13_STOP)
+           for ops, label in ((kernels.KERNEL_OPS, "kernels"),
+                              (kernels.PLAIN_OPS, "plain versions"))]
+    same_runs("phase 13", *cut)
+    print(f"[{card}] phase 13 plain run equal to the kernels' run to "
+          f"t={PHASE13_STOP}: windows, rollbacks, counters, chain, "
+          f"{len(interop.state_paths(cut[1][0].state))} state arrays",
+          flush=True)
+    del cut
+
+    runs = [optimistic_run(card, MIXED, ops, f"phase 14 mixed run ({label})")
+            for ops, label in ((kernels.KERNEL_OPS, "kernels"),
+                               (kernels.PLAIN_OPS, "plain versions"))]
+    _, resm, cm, chainm, launchesm = runs[0]
+    if resm[1] == 0:
+        fail("phase 14: the mixed run took no rollback")
+    for k in MIXED_PATH:
+        if launchesm[k] == 0:
+            fail(f"phase 14: kernel {k} never launched")
+    check_optimistic("phase 14", resm, cm, chainm, REF_MIXED)
+    same_runs("phase 14", *runs)
+    del runs
+    flood = [optimistic_run(card, mixed_flood(), ops,
+                            f"phase 14 mixed flood ({label})")
+             for ops, label in ((kernels.KERNEL_OPS, "kernels"),
+                                (kernels.PLAIN_OPS, "plain versions"))]
+    if flood[0][1][1] == 0 or flood[0][3] != MIXED_FLOOD_CHAIN:
+        fail("phase 14: the mixed flood took no rollback or its chain "
+             "differs from the JAX package's")
+    same_runs("phase 14 mixed flood", *flood)
+    del flood
+    check_snapshot(card)
+    print(f"[{card}] phase 14 the mixed run equal to the JAX package's "
+          f"windows, rollbacks, counters and chain, and to the plain "
+          f"versions' state; the mixed flood's loop-path rollbacks too",
+          flush=True)
+    return opt_results, launches4, launchesm, launches_nic
 
 
 def same_state(a, b) -> list:
@@ -1150,11 +1720,18 @@ def main() -> None:
           flush=True)
     del sim, psim
 
+    t_opt = time.perf_counter()
+    opt_results, launches4, launchesm, launches_nic = optimistic_phases(card)
+
     # one entry for each kernel on each main path: its launches in that
     # path's run, and its times and bound on that path's inputs
     paths = (("phold", PHOLD_PATH, launches, results),
              ("config2", CONFIG2_PATH, launches2, loop_results),
-             ("config3", CONFIG3_PATH, launches3, tcp_results))
+             ("config3", CONFIG3_PATH, launches3, tcp_results),
+             ("config4", CONFIG4_PATH, launches4, opt_results["config4"]),
+             ("mixed", MIXED_PATH, launchesm, opt_results["mixed"]),
+             ("config3_100mbit", NIC_PATH, launches_nic,
+              opt_results["config3_100mbit"]))
     line = {"kernels": [
         {
             "name": k.name,
@@ -1174,7 +1751,8 @@ def main() -> None:
         for path, on_path, counts, res in paths if k.name in on_path
     ]}
     t_end = time.perf_counter()
-    print(f"[{card}] phases 9-11 wall_s={t_end - t_tcp:.3f}; whole script "
+    print(f"[{card}] phases 9-11 wall_s={t_opt - t_tcp:.3f}; phases 12-14 "
+          f"wall_s={t_end - t_opt:.3f}; whole script "
           f"wall_s={t_end - t_start:.3f}", flush=True)
     print(json.dumps(line))
     print(card)

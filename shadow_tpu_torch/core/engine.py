@@ -49,14 +49,24 @@ each micro-step; the port skips a kind (or a bulk column) no host took,
 as a handler called with its mask all off changes nothing: its writes
 and its emissions are all masked.
 
+Both paths end by setting ``xmit_min``, the speculation-violation signal
+(kernel ``spec_check``): the earliest emission of the window behind its
+destination's progress clock ``host.done_t``. Conservative windows leave
+it NEVER by construction.
+
 The sorts are ``torch.sort(stable=True)``; a stable sort by k2 followed by
 a stable sort by k1 is ``lax.sort(num_keys=2, is_stable=True)``. The
-driver is a host loop with one device-to-host read per window, and it
-reproduces ``make_run_to``'s window bounds exactly: ``ws = min(pool.time)``,
-``we = min(ws + runahead, stop)``.
+conservative driver (``run``) is a host loop with one device-to-host read
+per window, and it reproduces ``make_run_to``'s window bounds exactly:
+``ws = min(pool.time)``, ``we = min(ws + runahead, stop)``. The optimistic
+driver (``run_optimistic``, the JAX package's ``make_attempt`` and
+``Simulation.run_optimistic``) speculates windows of up to ``factor``
+runaheads: an attempt steps a snapshot of the committed state until the
+pool holds no event below the window end or a step reports a violation,
+which rolls the window back and retries it shorter.
 
-Not ported here (``ROADMAP.md``): the CPU model, islands, the optimistic
-driver, pool gears and the spill tier.
+Not ported here (``ROADMAP.md``): the CPU model, islands, pool gears and
+the spill tier.
 """
 
 from __future__ import annotations
@@ -171,6 +181,15 @@ class Tail(NamedTuple):
     seq: torch.Tensor
     kind: torch.Tensor
     payload: torch.Tensor  # [C, PP]
+
+
+class Frontier(NamedTuple):
+    """One device-to-host read of the pool between window steps."""
+
+    mn: int  # earliest pending event time
+    occ: int  # live pool rows
+    other: bool  # the window to step holds an event of a non-bulk kind
+    xmit: int  # the state's xmit_min
 
 
 class PoolExhausted(RuntimeError):
@@ -378,6 +397,7 @@ class Simulation:
             rng_keys=rng_mod.host_keys(seed, num_hosts, device=dev),
             subs=subs or {},
             obs=obs_mod.ObsBlock.zeros(num_hosts, dev),
+            xmit_min=torch.full((), NEVER, dtype=torch.int64, device=dev),
         )
         self._win_bump = obs_mod.win_bump_vec(
             obs_mod.WIN_WINDOWS, obs_mod.WIN_MATRIX, device=dev
@@ -386,21 +406,23 @@ class Simulation:
             obs_mod.WIN_WINDOWS, obs_mod.WIN_LOOP, device=dev
         )
 
-    def _frontier(self, stop: int):
-        """(min pool time, occupancy, whether the window that starts there
-        holds an event of another kind than the bulk kind): one
-        device-to-host read."""
+    def _frontier(self, stop: int, we: int | None = None) -> Frontier:
+        """The pool's frontier in one device-to-host read. ``other`` is
+        read for the window that ends at ``we``, or, without it, for the
+        conservative window that starts at the earliest event."""
         t = self.state.pool.time
         mn = t.min()
         if self.matrix_handler is None:
             other = torch.ones((), dtype=torch.bool, device=t.device)
         else:
-            we = torch.clamp(mn, max=stop - self.runahead) + self.runahead
+            if we is None:
+                we = torch.clamp(mn, max=stop - self.runahead) + self.runahead
             other = ((t < we)
                      & (self.state.pool.kind != self.bulk_kind)).any()
-        vals = torch.stack([mn, (t != NEVER).sum(), other.to(torch.int64)])
-        mn, occ, other = vals.tolist()
-        return mn, occ, bool(other)
+        vals = torch.stack([mn, (t != NEVER).sum(), other.to(torch.int64),
+                            self.state.xmit_min])
+        mn, occ, other, xmit = vals.tolist()
+        return Frontier(mn, occ, bool(other), xmit)
 
     def _takes_matrix(self, other: bool) -> bool:
         """The JAX package's per-window path choice (``make_window_step``):
@@ -433,6 +455,8 @@ class Simulation:
         )
         state.host.done_t = cm.done_t
         state.host.seq_next = fw.seq_next
+        # against the clocks after this window's commit, as JAX reads them
+        state.xmit_min = ops.spec_check(fw.time, fw.dst, fw.src, cm.done_t)
         tot = fw.stats.sum(dim=0)  # received, sent, kept, violations
         c = state.counters
         c.events_committed = c.events_committed + cm.n_valid.sum()
@@ -466,7 +490,7 @@ class Simulation:
         )
         probe = Emitter(kernels.PLAIN_OPS)
         e_by_kind = np.zeros(max(kinds) + 1 if kinds else 1, dtype=np.int32)
-        pstate = self.state.detached_copy()
+        pstate = self.state.snapshot()
         for k in kinds:
             before = len(probe.records)
             pstate = self.handlers[k](pstate, pv, probe, self.params)
@@ -529,7 +553,8 @@ class Simulation:
         while work and it < self.max_iters:
             gate = None
             if use_gate and self.bulk_gate is not None:
-                gate = self.bulk_gate(state, params, win_start, win_end)
+                gate = self.bulk_gate(state, params, win_start, win_end,
+                                      ops)
             sel = ops.loop_select(
                 dense.time, dense.src, dense.seq, dense.kind, dense.payload,
                 ptr, boxes.i_t, boxes.i_s, boxes.i_q, boxes.i_k, boxes.i_p,
@@ -621,7 +646,11 @@ class Simulation:
                      payload=bx.i_p.reshape(-1, PP))
         pool, dropped = merge_rows([leftover, tail, outbox, inbox],
                                    state.pool.capacity)
-        self.state = state.replace(pool=pool).add_counters(
+        # JAX checks the outbox and the inbox; an inbox row is always a
+        # host's own emission (dst == src), which cannot violate
+        xmit = ops.spec_check(outbox.time, outbox.dst, outbox.src,
+                              state.host.done_t)
+        self.state = state.replace(pool=pool, xmit_min=xmit).add_counters(
             pool_overflow_dropped=dropped)
         return committed
 
@@ -655,32 +684,133 @@ class Simulation:
         stop = self.stop_time if until is None else min(until,
                                                         self.stop_time)
         windows = 0
-        mn, occ, other = self._frontier(stop)
-        while mn < stop:
-            if occ >= self.hi:
+        f = self._frontier(stop)
+        while f.mn < stop:
+            if f.occ >= self.hi:
                 raise PoolExhausted(
-                    f"pool occupancy {occ} reached the spill mark "
+                    f"pool occupancy {f.occ} reached the spill mark "
                     f"{self.hi} of capacity {self.state.pool.capacity} at "
-                    f"t={mn}; the spill tier is not ported (ROADMAP.md "
+                    f"t={f.mn}; the spill tier is not ported (ROADMAP.md "
                     f"queue A 6): raise experimental.event_capacity"
                 )
-            we = min(mn + self.runahead, stop)
-            if self._takes_matrix(other):
-                self.step(mn, we)
-            elif self.step_loop(mn, we, occ) == 0:
-                # the pool-headroom gate stalled every host: the JAX
-                # package's driver raises here too, as its spill tier
-                # cannot place one window's inflow either
-                raise PoolExhausted(
-                    f"the window at t={mn} committed nothing: pool "
-                    f"occupancy {occ} of capacity "
-                    f"{self.state.pool.capacity} leaves too little "
-                    f"headroom for one window's emissions; raise "
-                    f"experimental.event_capacity"
-                )
+            self.window_step(f.mn, min(f.mn + self.runahead, stop), f)
             windows += 1
-            mn, occ, other = self._frontier(stop)
+            f = self._frontier(stop)
         return windows
+
+    def window_step(self, ws: int, we: int, f: Frontier | None = None):
+        """Process the window [ws, we) once, on the path the JAX package's
+        step chooses for this window (``make_window_step``): the matrix
+        path when every event below ``we`` has the bulk kind. ``f`` is the
+        frontier read for this ``we`` (read here when not given); the next
+        read gives the JAX step's ``min_next`` and ``xmit_min``."""
+        if f is None:
+            f = self._frontier(self.stop_time, we)
+        if self._takes_matrix(f.other):
+            self.step(ws, we)
+        elif self.step_loop(ws, we, f.occ) == 0:
+            # the pool-headroom gate stalled every host: the JAX
+            # package's driver raises here too, as its spill tier cannot
+            # place one window's inflow either (its attempt loop would
+            # spin)
+            raise PoolExhausted(
+                f"the window at t={ws} committed nothing: pool occupancy "
+                f"{f.occ} of capacity {self.state.pool.capacity} leaves "
+                f"too little headroom for one window's emissions; raise "
+                f"experimental.event_capacity"
+            )
+
+    # -- the optimistic driver --
+
+    def attempt(self, base: SimState, ws: int, we: int):
+        """One speculative window (the JAX package's ``make_attempt``):
+        from a snapshot of ``base``, step [max(mn, ws), we) until no pool
+        event is below ``we`` or a step reports a violation. Returns
+        (state, min_next, violation time or NEVER); ``base`` is left as it
+        was."""
+        self.state = base.snapshot()
+        f = self._frontier(self.stop_time, we)
+        mn, viol = f.mn, NEVER
+        while mn < we and viol == NEVER:
+            self.window_step(max(mn, ws), we, f)
+            f = self._frontier(self.stop_time, we)
+            mn, viol = f.mn, f.xmit
+        return self.state, mn, viol
+
+    @staticmethod
+    def adapt_window_factor(factor: int, streak: int, rolled_back: bool,
+                            cap: int) -> tuple[int, int]:
+        """The Time-Warp throttle: halve the speculation factor on a
+        rolled-back window, double it (up to ``cap``) after four clean
+        windows in a row. Depends only on the simulation, never on wall
+        time."""
+        if rolled_back:
+            return max(1, factor // 2), 0
+        streak += 1
+        if streak >= 4 and factor < cap:
+            return min(cap, factor * 2), 0
+        return factor, streak
+
+    def run_optimistic(self, until: int | None = None,
+                       window_factor: int = 8,
+                       adaptive: bool = True) -> tuple[int, int]:
+        """Advance with speculative windows of ``factor`` runaheads (the
+        JAX package's ``run_optimistic`` on the global engine); returns
+        (windows committed, rollbacks).
+
+        ``host.done_t`` is reset to -1 at the start and at every commit. A
+        violation rolls the window back to its snapshot and retries it
+        ending at the violation time, never below the conservative width,
+        where a violation is impossible by construction: one reported
+        there means the invariant broke, and the driver raises instead of
+        committing. With ``adaptive`` the factor moves between 1 and
+        ``window_factor`` (``adapt_window_factor``). The JAX driver's
+        gears, spill tier, supervisor, fault plane and two-slot pipeline
+        do not exist in the port (the build refuses ``pool_gears`` > 1);
+        the pipeline changes no result. Runs under
+        ``torch.inference_mode``, as ``run`` does."""
+        with torch.inference_mode():
+            return self._run_optimistic(until, window_factor, adaptive)
+
+    def _run_optimistic(self, until, window_factor, adaptive):
+        stop = self.stop_time if until is None else min(until,
+                                                        self.stop_time)
+        cons = self.runahead
+        windows = rollbacks = streak = 0
+        factor = window_factor
+        neg1 = torch.full((self.num_hosts,), -1, dtype=torch.int64,
+                          device=self.device)
+        self.state = self.state.with_host(done_t=neg1)
+        min_next = self._frontier(stop).mn
+        while min_next < stop:
+            ws = min_next
+            we = min(ws + factor * cons, stop)
+            base = self.state.snapshot()  # the rollback point
+            rb0 = rollbacks
+            while True:
+                st, mn, viol = self.attempt(base, ws, we)
+                if we <= ws + cons and viol < NEVER:
+                    raise RuntimeError(
+                        f"speculation violation at t={viol} inside a "
+                        f"conservative-width window [{ws}, {we}): the "
+                        f"conservative-width invariant is broken (runahead "
+                        f"{cons} ns exceeds a real path latency, or a "
+                        f"handler emitted into the past); refusing to "
+                        f"commit")
+                if viol >= NEVER or we <= ws + cons:
+                    break
+                rollbacks += 1
+                we = max(viol, ws + cons)
+            # each rollback shrank the window once
+            st = obs_mod.bump_win(st, obs_mod.WIN_ROLLBACKS, rollbacks - rb0)
+            st = obs_mod.bump_win(st, obs_mod.WIN_SHRINKS, rollbacks - rb0)
+            self.state = st.with_host(done_t=neg1)
+            min_next = mn
+            windows += 1
+            if adaptive:
+                factor, streak = self.adapt_window_factor(
+                    factor, streak, rollbacks > rb0, window_factor)
+        return windows, rollbacks
 
     def counters(self) -> dict[str, int]:
         c = self.state.counters

@@ -155,6 +155,12 @@ class SimState:
     rng_keys: torch.Tensor  # [H, 2] int64 holding uint32 key words
     subs: dict = dataclasses.field(default_factory=dict)
     obs: object = None
+    # [] int64: the earliest emission of the last window step that landed
+    # at or behind its destination's progress clock (host.done_t), NEVER
+    # if none: the optimistic driver's speculation-violation signal;
+    # conservative windows leave it NEVER by construction
+    xmit_min: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(simtime.NEVER))
 
     # The loop path's handlers update the state functionally, as the JAX
     # package's do: each helper returns a new SimState and leaves this one
@@ -177,19 +183,22 @@ class SimState:
         return replace(self, counters=replace(
             c, **{k: getattr(c, k) + v for k, v in deltas.items()}))
 
-    def detached_copy(self) -> "SimState":
-        """A copy whose containers (host, counters, obs, subs and each
-        sub-state) are new objects sharing this state's tensors: what a
-        handler does to the copy's fields leaves this state as it was."""
-        def sub(v):
-            if isinstance(v, dict):
-                return dict(v)
-            return replace(v) if dataclasses.is_dataclass(v) else v
-        return replace(
-            self, host=replace(self.host), counters=replace(self.counters),
-            obs=None if self.obs is None else replace(self.obs),
-            subs={k: sub(v) for k, v in self.subs.items()},
-        )
+    def snapshot(self) -> "SimState":
+        """A copy of every container level (pool, host, counters, obs,
+        subs and each sub-state, nested ones too) sharing this state's
+        tensors. The matrix step and the app handlers assign fields on the
+        containers they are given; done on the copy, that leaves this
+        state as it was. The tensors are shared because nothing writes
+        into one: the optimistic driver rolls back to a snapshot."""
+        return _snap(self)
+
+
+def _snap(v):
+    if isinstance(v, dict):
+        return {k: _snap(x) for k, x in v.items()}
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return replace(v, **{k: _snap(x) for k, x in vars(v).items()})
+    return v
 
 
 def make_host_state(num_hosts: int, host_vertex: np.ndarray,

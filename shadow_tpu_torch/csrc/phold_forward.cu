@@ -16,8 +16,8 @@
 //            kind, payload) for every cell, sent or not: the merge's stable
 //            ties see every row, and unsent rows become free pool rows.
 // The draws are JAX's threefry2x32 (partitionable form) and its float32
-// uniform, bit for bit. Built with --fmad=false; the one float multiply
-// is __fmul_rn as well.
+// uniform, bit for bit (threefry.cuh). Built with --fmad=false; the one
+// float multiply is __fmul_rn as well.
 //
 // Bound: bytes. It reads 16 bytes a cell (time, payload) and writes 32
 // (time, dst, src, seq, kind, payload); the ~4 threefry blocks a cell are
@@ -29,43 +29,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr long long kNever = 0x7FFFFFFFFFFFFFFFLL;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i & 1][j]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
-  }
-}
-
-// uniform(fold_in(key, counter)) as jax.random computes it
-__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
-                                            uint32_t counter) {
-  uint32_t a = 0u, b = counter;
-  threefry2x32(k0, k1, a, b);
-  uint32_t x0 = 0u, x1 = 0u;
-  threefry2x32(a, b, x0, x1);
-  uint32_t bits = x0 ^ x1;
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
 
 __global__ void phold_forward_kernel(
     const long long* __restrict__ d_t, const long long* __restrict__ d_p,
@@ -98,7 +66,7 @@ __global__ void phold_forward_kernel(
     const uint32_t off = c0 + 2u * n_send;
     int dst = me;
     if (num_hosts > 1) {
-      float f = floorf(__fmul_rn(uniform_at(k0, k1, off), hm1));
+      float f = floorf(__fmul_rn(rng::uniform_at(k0, k1, off), hm1));
       int d = (int)f;
       d = d < 0 ? 0 : (d > num_hosts - 2 ? num_hosts - 2 : d);
       dst = d + (d >= me ? 1 : 0);
@@ -116,7 +84,7 @@ __global__ void phold_forward_kernel(
         lat = lat_vv[e];
         rel = rel_vv[e];
       }
-      emit = t < bootstrap_end || uniform_at(k0, k1, off + 1u) < rel;
+      emit = t < bootstrap_end || rng::uniform_at(k0, k1, off + 1u) < rel;
       if (emit) {
         te = (long long)((unsigned long long)t + (unsigned long long)lat);
         if (dst == me && te < win_end) ++n_viol;

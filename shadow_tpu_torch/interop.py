@@ -3,6 +3,7 @@
 ``state_to_numpy`` flattens a port ``SimState`` into ``{path: array}``
 with paths like ``pool.time``, ``host.rng_counter``,
 ``counters.events_committed``, ``obs.host_digest``, ``rng_keys``,
+``xmit_min`` (the speculation-violation signal),
 ``subs.phold.received`` (an app's dict sub-state) and ``subs.nic.tx_rem``
 (a network sub-state: ``nic``, ``router``, ``udp``, ``tcp``);
 ``state_from_numpy`` builds a ``SimState`` from such a dict on a device.
@@ -39,7 +40,7 @@ SUB_CLASSES = {nic.SUB: nic.NicState, codel.SUB: codel.RouterState,
 
 def state_paths(state: SimState) -> list[str]:
     """Every path ``state_to_numpy`` writes for this state."""
-    paths = ["now", "rng_keys"]
+    paths = ["now", "rng_keys", "xmit_min"]
     for name, cls in _GROUPS:
         paths += [f"{name}.{f.name}" for f in dataclasses.fields(cls)]
     for sub, d in state.subs.items():
@@ -88,6 +89,7 @@ def state_from_numpy(arrays: dict, device=None) -> SimState:
     return SimState(
         now=int(np.asarray(arrays["now"])),
         rng_keys=_tensor(arrays["rng_keys"], device),
+        xmit_min=_tensor(arrays["xmit_min"], device),
         subs=subs,
         **groups,
     )

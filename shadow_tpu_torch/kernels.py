@@ -1,7 +1,7 @@
 """The window step's hand-written CUDA kernels, their plain PyTorch
 versions, and the build and ctypes binding.
 
-Eleven kernels carry the window step on the card (sources under
+Fifteen kernels carry the window step on the card (sources under
 ``csrc/``, one shared library each). The PHOLD matrix path runs the
 first three:
 
@@ -38,6 +38,18 @@ that the emissions stay in the JAX package's order:
   (the reorder board) and the SACK word of its ACK reply.
 * ``tcp_out`` (K11): the output pump ``Tcp.on_out``.
 
+The optimistic driver and the network stack's NIC and link run four more:
+
+* ``spec_check`` (K12): the speculation-violation signal ``xmit_min`` of
+  both window paths (``shadow_tpu/core/engine.py``, loop ``finish`` and
+  ``run_matrix``): the earliest emission behind its destination's
+  progress clock.
+* ``nic_refill`` (K13): the token buckets' ``nic.lazy_refill``.
+* ``send_dequeue`` (K14): the fifo qdisc's dequeue, ``nic.peek_send``
+  then ``nic.pop_send``.
+* ``link_send`` (K15): ``net/link.py:send``'s path lookup, per-host
+  threefry draw and loss roll.
+
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no fallback from one to the
 other. A wrapper adds one to its kernel's ``launches`` where it launches
@@ -66,7 +78,7 @@ from typing import NamedTuple
 import torch
 
 from shadow_tpu_torch.core import rng, soa
-from shadow_tpu_torch.core.simtime import NEVER
+from shadow_tpu_torch.core.simtime import NEVER, NS_PER_MS
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -153,9 +165,21 @@ TCP_REORDER = Kernel(
      _I, _I, _I, _I, _P),
 )
 TCP_OUT = Kernel("tcp_out", (_P, _P, _I, _I, _I, _P))
+SPEC_CHECK = Kernel("spec_check", (_P, _P, _P, _P, _L, _I, _P, _P))
+NIC_REFILL = Kernel(
+    "nic_refill", (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P))
+SEND_DEQUEUE = Kernel(
+    "send_dequeue", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P))
+LINK_SEND = Kernel(
+    "link_send",
+    (_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _L,  # inputs
+     _P, _P, _P, _P,  # outputs
+     _I, _P),
+)
 KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
            LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
-           TCP_REORDER, TCP_OUT)
+           TCP_REORDER, TCP_OUT, SPEC_CHECK, NIC_REFILL, SEND_DEQUEUE,
+           LINK_SEND)
 
 
 def reset_launches() -> None:
@@ -1692,6 +1716,231 @@ def tcp_out(mask, slot, now, *fields, mss: int) -> OutOut:
     return OutOut(outs, *per)
 
 
+# ---------------------------------------------------------------------------
+# K12 spec_check
+# ---------------------------------------------------------------------------
+
+
+def spec_check_plain(t, dst, src, done_t) -> torch.Tensor:
+    """Plain version: the JAX package's exact violation form."""
+    H = done_t.shape[0]
+    if t.shape[0] == 0:
+        return torch.full((), NEVER, dtype=torch.int64, device=t.device)
+    last = done_t[dst.to(torch.int64).clamp(0, H - 1)]
+    viol = (dst != src) & (t != NEVER) & (t <= last)
+    return torch.where(viol, t, NEVER).min()
+
+
+def spec_check(t, dst, src, done_t) -> torch.Tensor:
+    """[] int64: the earliest time t of the emission rows (t, dst, src)
+    [N] that cross hosts and land at or behind their destination's
+    progress clock ``done_t[clip(dst)]`` [H]; NEVER where none does."""
+    if not _on_card(t, dst, src, done_t):
+        return spec_check_plain(t, dst, src, done_t)
+    N, H = t.shape[0], done_t.shape[0]
+    out = torch.empty((), dtype=torch.int64, device=t.device)
+    _launch(SPEC_CHECK, _check(t, torch.int64, (N,), "t"),
+            _check(dst, torch.int32, (N,), "dst"),
+            _check(src, torch.int32, (N,), "src"),
+            _check(done_t, torch.int64, (H,), "done_t"), N, H,
+            out.data_ptr(), _stream(t))
+    return out
+
+
+def _per_host(t: torch.Tensor, H: int, dtype, name: str):
+    """(pointer, stride) of a per-host input that may be one value
+    broadcast to every host (a 0-d tensor or a stride-0 expand)."""
+    t = t.expand(H)
+    if t.stride(0) not in (0, 1):
+        t = t.contiguous()
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: want {dtype}, got {t.dtype}")
+    return t.data_ptr(), t.stride(0)
+
+
+# ---------------------------------------------------------------------------
+# K13 nic_refill
+# ---------------------------------------------------------------------------
+
+REFILL_NS = NS_PER_MS  # the token buckets' refill grid
+
+
+def nic_refill_plain(rem, tick, refill, cap, now, mask=None):
+    """Plain version of ``nic.lazy_refill``: lanes of hosts without a real
+    event carry ``now`` = NEVER, where ``(now_tick - tick) * refill``
+    wraps; the select discards them, as in the JAX package. ``//`` floors
+    as JAX's does."""
+    now_tick = now // REFILL_NS
+    new_rem = torch.minimum(cap, rem + (now_tick - tick) * refill)
+    new_rem = torch.where(now_tick > tick, new_rem, rem)
+    new_tick = torch.maximum(tick, now_tick)
+    if mask is not None:
+        new_rem = torch.where(mask, new_rem, rem)
+        new_tick = torch.where(mask, new_tick, tick)
+    return new_rem, new_tick
+
+
+def nic_refill(rem, tick, refill, cap, now, mask=None):
+    """Apply every grid refill since ``tick`` to the buckets ``rem`` [H],
+    clamped to ``cap``; returns (rem, tick). ``now`` is [H] or one value
+    for every host; ``mask`` (or None: every host) gates the lanes that
+    update."""
+    args = (rem, tick, refill, cap, now) + (() if mask is None else (mask,))
+    if not _on_card(*args):
+        return nic_refill_plain(rem, tick, refill, cap, now, mask)
+    H = rem.shape[0]
+    now_p, now_s = _per_host(now, H, torch.int64, "now")
+    ins = (
+        _check(rem, torch.int64, (H,), "rem"),
+        _check(tick, torch.int64, (H,), "tick"),
+        _check(refill, torch.int64, (H,), "refill"),
+        _check(cap, torch.int64, (H,), "cap"),
+        now_p, now_s,
+        0 if mask is None else _check(mask, torch.bool, (H,), "mask"),
+    )
+    o_rem = torch.empty(H, dtype=torch.int64, device=rem.device)
+    o_tick = torch.empty(H, dtype=torch.int64, device=rem.device)
+    _launch(NIC_REFILL, *ins, o_rem.data_ptr(), o_tick.data_ptr(), H,
+            _stream(rem))
+    return o_rem, o_tick
+
+
+# ---------------------------------------------------------------------------
+# K14 send_dequeue
+# ---------------------------------------------------------------------------
+
+
+class SendOut(NamedTuple):
+    """One fifo dequeue: the head slot's packet (handed up for every
+    host; the caller masks each use with ``sent``) and the new head."""
+
+    payload: torch.Tensor  # [H, P] int32
+    dst: torch.Tensor  # [H] int32
+    sent: torch.Tensor  # [H] bool: want & ring nonempty
+    head: torch.Tensor  # [H] int32
+
+
+def send_dequeue_plain(q_payload, q_dst, q_head, q_tail, want) -> SendOut:
+    """Plain version: ``nic.peek_send`` then ``nic.pop_send``."""
+    slot = q_head % q_dst.shape[1]
+    sent = want & (q_head < q_tail)
+    return SendOut(payload=soa.get_at(q_payload, slot),
+                   dst=soa.get_at(q_dst, slot), sent=sent,
+                   head=q_head + sent.to(torch.int32))
+
+
+def send_dequeue(q_payload, q_dst, q_head, q_tail, want) -> SendOut:
+    """Dequeue each wanting host's head packet from its NIC send ring
+    (``q_payload`` [H, NQ, P], ``q_dst`` [H, NQ])."""
+    args = (q_payload, q_dst, q_head, q_tail, want)
+    if not _on_card(*args):
+        return send_dequeue_plain(*args)
+    H, NQ, P = q_payload.shape
+    dev = q_payload.device
+    ins = (
+        _check(q_payload, torch.int32, (H, NQ, P), "q_payload"),
+        _check(q_dst, torch.int32, (H, NQ), "q_dst"),
+        _check(q_head, torch.int32, (H,), "q_head"),
+        _check(q_tail, torch.int32, (H,), "q_tail"),
+        _check(want, torch.bool, (H,), "want"),
+    )
+    out = SendOut(
+        payload=torch.empty((H, P), dtype=torch.int32, device=dev),
+        dst=torch.empty(H, dtype=torch.int32, device=dev),
+        sent=torch.empty(H, dtype=torch.bool, device=dev),
+        head=torch.empty(H, dtype=torch.int32, device=dev),
+    )
+    _launch(SEND_DEQUEUE, *ins, *(t.data_ptr() for t in out), H, NQ, P,
+            _stream(q_payload))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K15 link_send
+# ---------------------------------------------------------------------------
+
+
+class LinkOut(NamedTuple):
+    """One ``link.send`` over every host, [H] each."""
+
+    deliver: torch.Tensor  # bool: rolled and kept
+    drop: torch.Tensor  # bool: rolled and lost
+    arrival: torch.Tensor  # int64: now + path latency (wraps if unreachable)
+    rng_counter: torch.Tensor  # int64 (uint32 values): advanced where rolled
+
+
+def link_send_plain(mask, dst, now, control, vertex, vertex_g, latency_vv,
+                    reliability_vv, rng_keys, rng_counter, *,
+                    bootstrap_end: int) -> LinkOut:
+    """Plain version: the JAX package's ``link.send`` up to its emission.
+    The destination indexes the vertex table as a JAX gather does: a
+    negative index counts from the end, then it is clipped into the
+    table (a lane that does not send may carry any destination)."""
+    H = mask.shape[0]
+    if latency_vv.shape[0] == 1:
+        lat = latency_vv[0, 0].expand(H)
+        rel = reliability_vv[0, 0].expand(H)
+    else:
+        table = vertex_g if vertex_g is not None else vertex
+        T = table.shape[0]
+        d = dst.to(torch.int64)
+        d = torch.where(d < 0, d + T, d).clamp(0, T - 1)
+        vd = table[d].to(torch.int64)
+        vs = vertex.to(torch.int64)
+        lat = latency_vv[vs, vd]
+        rel = reliability_vv[vs, vd]
+    roll = mask & (lat != NEVER)
+    u = rng.uniform_per_host(rng_keys, rng_counter)
+    kept = (now < bootstrap_end) | control | (u < rel)
+    return LinkOut(
+        deliver=roll & kept, drop=roll & ~kept, arrival=now + lat,
+        rng_counter=torch.where(roll, (rng_counter + 1) & rng.M32,
+                                rng_counter),
+    )
+
+
+def link_send(mask, dst, now, control, vertex, vertex_g, latency_vv,
+              reliability_vv, rng_keys, rng_counter, *,
+              bootstrap_end: int) -> LinkOut:
+    """Each masked host's packet to ``dst`` [H] over its path: latency,
+    reachability and the loss roll at the host's draw counter (no loss
+    during bootstrap or for ``control`` packets). ``now`` and ``control``
+    are [H] or one value for every host."""
+    args = (mask, dst, now, control, vertex, latency_vv, reliability_vv,
+            rng_keys, rng_counter)
+    table = vertex_g if vertex_g is not None else vertex
+    if not _on_card(*args, table):
+        return link_send_plain(mask, dst, now, control, vertex, vertex_g,
+                               latency_vv, reliability_vv, rng_keys,
+                               rng_counter, bootstrap_end=bootstrap_end)
+    H, U = mask.shape[0], latency_vv.shape[0]
+    dev = mask.device
+    now_p, now_s = _per_host(now, H, torch.int64, "now")
+    ctl_p, ctl_s = _per_host(control, H, torch.bool, "control")
+    ins = (
+        _check(mask, torch.bool, (H,), "mask"),
+        _check(dst, torch.int32, (H,), "dst"),
+        now_p, now_s, ctl_p, ctl_s,
+        _check(vertex, torch.int32, (H,), "vertex"),
+        _check(table, torch.int32, (table.shape[0],), "vertex_g"),
+        table.shape[0],
+        _check(latency_vv, torch.int64, (U, U), "latency_vv"),
+        _check(reliability_vv, torch.float32, (U, U), "reliability_vv"),
+        U,
+        _check(rng_keys, torch.int64, (H, 2), "rng_keys"),
+        _check(rng_counter, torch.int64, (H,), "rng_counter"),
+        int(bootstrap_end),
+    )
+    out = LinkOut(
+        deliver=torch.empty(H, dtype=torch.bool, device=dev),
+        drop=torch.empty(H, dtype=torch.bool, device=dev),
+        arrival=torch.empty(H, dtype=torch.int64, device=dev),
+        rng_counter=torch.empty(H, dtype=torch.int64, device=dev),
+    )
+    _launch(LINK_SEND, *ins, *(t.data_ptr() for t in out), H, _stream(mask))
+    return out
+
+
 class WindowOps(NamedTuple):
     """The window-step functions the engine and the network stack call."""
 
@@ -1706,15 +1955,21 @@ class WindowOps(NamedTuple):
     tcp_ack: object
     tcp_reorder: object
     tcp_out: object
+    spec_check: object
+    nic_refill: object
+    send_dequeue: object
+    link_send: object
 
 
 # the wrappers: the kernels on the card, the plain versions on the CPU
 KERNEL_OPS = WindowOps(extract_slots, phold_forward, audit_commit,
                        loop_select, loop_route, codel_dequeue, ring_append,
-                       tcp_demux, tcp_ack, tcp_reorder, tcp_out)
+                       tcp_demux, tcp_ack, tcp_reorder, tcp_out, spec_check,
+                       nic_refill, send_dequeue, link_send)
 # the plain versions on any device (the on-card comparison run)
 PLAIN_OPS = WindowOps(extract_slots_plain, phold_forward_plain,
                       audit_commit_plain, loop_select_plain, loop_route_plain,
                       codel_dequeue_plain, ring_append_plain,
                       tcp_demux_plain, tcp_ack_plain, tcp_reorder_plain,
-                      tcp_out_plain)
+                      tcp_out_plain, spec_check_plain, nic_refill_plain,
+                      send_dequeue_plain, link_send_plain)

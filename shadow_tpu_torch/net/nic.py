@@ -2,10 +2,11 @@
 
 The JAX package's ``net/nic.py``. Token buckets refill lazily from the
 1 ms grid anchored at t = 0 whenever they are touched; one packet moves
-per pump event. The send ring keeps arrival order (the fifo qdisc); the
-round-robin qdisc consumes it mid-ring through the helpers at the bottom.
-The append is the kernel ``ring_append``; the refill and the ring's
-peek and pop are PyTorch operations.
+per pump event. The send ring keeps arrival order (the fifo qdisc, whose
+dequeue is the kernel ``send_dequeue``); the round-robin qdisc consumes
+it mid-ring through the helpers at the bottom, which are PyTorch
+operations. The append is the kernel ``ring_append``, the refill the
+kernel ``nic_refill``.
 """
 
 from __future__ import annotations
@@ -14,12 +15,12 @@ import dataclasses
 
 import torch
 
+from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core import state as state_mod
 from shadow_tpu_torch.core import simtime, soa
 from shadow_tpu_torch.core.state import PAYLOAD_WORDS
+from shadow_tpu_torch.kernels import REFILL_NS
 from shadow_tpu_torch.net import packet as pkt
-
-REFILL_NS = simtime.NS_PER_MS
 
 SUB = "nic"
 
@@ -100,20 +101,12 @@ def count_rx(nic: NicState, mask, size) -> NicState:
     )
 
 
-def lazy_refill(rem, tick, refill, cap, now, mask=None):
-    """Apply every grid refill since ``tick``, clamped to the capacity.
-    ``mask`` gates the lanes that update: lanes of hosts without a real
-    event carry ``now`` = NEVER, where ``(now_tick - tick) * refill``
-    wraps; the select discards them, as in the JAX package. ``//`` floors
-    as JAX's does."""
-    now_tick = now // REFILL_NS
-    new_rem = torch.minimum(cap, rem + (now_tick - tick) * refill)
-    new_rem = torch.where(now_tick > tick, new_rem, rem)
-    new_tick = torch.maximum(tick, now_tick)
-    if mask is not None:
-        new_rem = torch.where(mask, new_rem, rem)
-        new_tick = torch.where(mask, new_tick, tick)
-    return new_rem, new_tick
+def lazy_refill(rem, tick, refill, cap, now, mask=None,
+                ops=kernels.KERNEL_OPS):
+    """Apply every grid refill since ``tick``, clamped to the capacity (the
+    kernel ``nic_refill``). ``mask`` gates the lanes that update: lanes of
+    hosts without a real event carry ``now`` = NEVER."""
+    return ops.nic_refill(rem, tick, refill, cap, now, mask)
 
 
 def next_refill_time(now):
@@ -131,18 +124,6 @@ def enqueue_send(nic: NicState, mask, dst_host, payload,
         q_payload=out.payload, q_dst=out.col, q_tail=out.tail,
         sendq_dropped=nic.sendq_dropped + (mask & ~out.ok).sum(),
     ), out.ok
-
-
-def peek_send(nic: NicState):
-    """Head packet per host: (payload [H, P], dst [H], nonempty [H])."""
-    nonempty = nic.q_head < nic.q_tail
-    slot = nic.q_head % nic.q_dst.shape[1]
-    return (soa.get_at(nic.q_payload, slot), soa.get_at(nic.q_dst, slot),
-            nonempty)
-
-
-def pop_send(nic: NicState, mask) -> NicState:
-    return nic.replace(q_head=nic.q_head + mask.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,12 @@ discipline through
 
   nonempty(state)                         -> [H] bool
   enqueue(state, mask, dst, payload, now, ops) -> (state, admitted)
-  dequeue(state, now, want)               -> (state, sent, payload, dst)
+  dequeue(state, now, want, ops)          -> (state, sent, payload, dst)
   note_direct(state, mask, payload)       -> state
 
-``fifo`` and ``roundrobin`` wrap the NIC's send ring. The device-queue
+``fifo`` and ``roundrobin`` wrap the NIC's send ring; the fifo dequeue
+is the kernel ``send_dequeue``, the round-robin one PyTorch operations
+(``ROADMAP.md``, device function B10). The device-queue
 disciplines ``pifo`` and ``eiffel`` are not ported yet (``ROADMAP.md``,
 device function B9) and raise.
 """
@@ -45,7 +47,7 @@ class Discipline:
                                  ops)
         return state.with_sub(nic.SUB, n), ok
 
-    def dequeue(self, state, now, want):
+    def dequeue(self, state, now, want, ops):
         raise NotImplementedError
 
     def note_direct(self, state, mask, payload):
@@ -58,11 +60,12 @@ class FifoDiscipline(Discipline):
 
     name = "fifo"
 
-    def dequeue(self, state, now, want):
+    def dequeue(self, state, now, want, ops):
         n = state.subs[nic.SUB]
-        payload, dst, has_pkt = nic.peek_send(n)
-        do = want & has_pkt
-        return state.with_sub(nic.SUB, nic.pop_send(n, do)), do, payload, dst
+        out = ops.send_dequeue(n.q_payload, n.q_dst, n.q_head, n.q_tail,
+                               want.contiguous())
+        return (state.with_sub(nic.SUB, n.replace(q_head=out.head)),
+                out.sent, out.payload, out.dst)
 
 
 class RoundRobinDiscipline(Discipline):
@@ -77,7 +80,7 @@ class RoundRobinDiscipline(Discipline):
     def attach(self, stack) -> None:
         self.sockets_per_host = stack.sockets_per_host
 
-    def dequeue(self, state, now, want):
+    def dequeue(self, state, now, want, ops):
         n = state.subs[nic.SUB]
         payload, dst, has_pkt, rr_slot = nic.peek_send_rr(
             n, self.sockets_per_host)

@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core.engine import Emitter, EventView
 from shadow_tpu_torch.core.state import (
     KIND_NIC_REFILL,
@@ -137,7 +138,8 @@ class NetStack:
         if params is not None:
             queued_any = self.disc.nonempty(state)
             tx_rem, tx_tick = nic.lazy_refill(
-                n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now64, mask)
+                n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now64, mask,
+                emitter.ops)
             n = n.replace(tx_rem=tx_rem, tx_tick=tx_tick)
             size = pkt.total_bytes(payload)
             bootstrap = now64 < params.bootstrap_end
@@ -243,7 +245,8 @@ class NetStack:
         n = state.subs[nic.SUB]
         r = state.subs[codel.SUB]
         rx_rem, rx_tick = nic.lazy_refill(
-            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, remote)
+            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, remote,
+            emitter.ops)
         n = n.replace(rx_rem=rx_rem, rx_tick=rx_tick)
         bootstrap = now < params.bootstrap_end
         size = pkt.total_bytes(ev.payload)
@@ -286,7 +289,8 @@ class NetStack:
         n = state.subs[nic.SUB]
         n = n.replace(send_pending=n.send_pending & ~mask)
         tx_rem, tx_tick = nic.lazy_refill(
-            n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now, mask)
+            n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now, mask,
+            emitter.ops)
         n = n.replace(tx_rem=tx_rem, tx_tick=tx_tick)
         bootstrap = now < params.bootstrap_end
         state = state.with_sub(nic.SUB, n)
@@ -294,7 +298,8 @@ class NetStack:
         for _ in range(self.PUMP_BATCH):
             n = state.subs[nic.SUB]
             want = mask & (bootstrap | (n.tx_rem >= pkt.MTU))
-            state, do, payload, dst = self.disc.dequeue(state, now, want)
+            state, do, payload, dst = self.disc.dequeue(state, now, want,
+                                                         emitter.ops)
             # the full wire size is charged (token debt allowed)
             size = pkt.total_bytes(payload)
             n = state.subs[nic.SUB]
@@ -332,7 +337,8 @@ class NetStack:
         n = state.subs[nic.SUB]
         n = n.replace(recv_pending=n.recv_pending & ~mask)
         rx_rem, rx_tick = nic.lazy_refill(
-            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, mask)
+            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, mask,
+            emitter.ops)
         n = n.replace(rx_rem=rx_rem, rx_tick=rx_tick)
         bootstrap = now < params.bootstrap_end
 
@@ -365,7 +371,7 @@ class NetStack:
         return {KIND_PKT_DELIVER: self.deliver_batch}
 
     def bulk_gate(self, state: SimState, params: NetParams, win_start,
-                  win_end):
+                  win_end, ops=kernels.KERNEL_OPS):
         """[H] int32: how many extra consecutive arrivals each host may
         batch this micro-step such that every one provably takes the
         direct paths. Buckets refill only to ``win_start`` and each
@@ -378,9 +384,9 @@ class NetStack:
         ws = torch.tensor(int(win_start), dtype=torch.int64, device=dev)
         G = self.deliver_batch
         rx_rem, _ = nic.lazy_refill(n.rx_rem, n.rx_tick, n.rx_refill,
-                                    n.rx_cap, ws)
+                                    n.rx_cap, ws, ops=ops)
         tx_rem, _ = nic.lazy_refill(n.tx_rem, n.tx_tick, n.tx_refill,
-                                    n.tx_cap, ws)
+                                    n.tx_cap, ws, ops=ops)
         if int(win_end) <= int(params.bootstrap_end):
             # the whole window inside bootstrap: tokens are not charged
             rx_ev = torch.full_like(rx_rem, G)

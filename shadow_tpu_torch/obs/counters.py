@@ -48,6 +48,16 @@ def win_bump_vec(*indices: int, device=None) -> torch.Tensor:
     return v.to(device)
 
 
+def bump_win(state, idx: int, n: int = 1):
+    """Add ``n`` to one window-plane slot (the driver's rollbacks and
+    shrinks, which no step sees); the state unchanged for n = 0."""
+    if state.obs is None or n == 0:
+        return state
+    win = state.obs.win.clone()
+    win[idx] += n
+    return state.replace(obs=dataclasses.replace(state.obs, win=win))
+
+
 @dataclasses.dataclass
 class ObsBlock:
     win: torch.Tensor  # [NUM_WIN] int64 window-plane counters

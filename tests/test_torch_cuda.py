@@ -11,7 +11,11 @@ lanes, full rings and boxes, key ties, token debt, drop mode) and whole
 runs of a congested UDP flood; the TCP kernels take seeded lossy tables
 (``chip_smoke.synthetic_tcp_*`` and ``random_tcp_*``: every branch of
 the ACK and reorder blocks, sequence numbers across the wrap, slots
-outside [0, S) on masked-off hosts) and a whole lossy TCP run.
+outside [0, S) on masked-off hosts) and a whole lossy TCP run; the
+optimistic driver's four kernels take the synthetic tables of
+``chip_smoke.synthetic_*`` (violations and filler destinations, idle
+gaps and NEVER lanes, wrapped ring heads, unreachable pairs and control
+packets) and whole optimistic runs that roll back on both paths.
 
 Marked ``cuda``: the card decides inside the fixture, and the tests skip
 where there is none. This file imports neither jax nor the JAX package,
@@ -167,11 +171,12 @@ def test_run_through_kernels_matches_plain_run(card):
     b.ops = kernels.PLAIN_OPS
     kernels.reset_launches()
     wa = a.run()
-    assert [k.launches for k in kernels.KERNELS] == (
-        [wa] * 3 + [0] * (len(kernels.KERNELS) - 3))
+    want = {k.name: wa if k.name in ("extract_slots", "phold_forward",
+                                     "audit_commit", "spec_check") else 0
+            for k in kernels.KERNELS}
+    assert {k.name: k.launches for k in kernels.KERNELS} == want
     wb = b.run()
-    assert [k.launches for k in kernels.KERNELS] == (
-        [wa] * 3 + [0] * (len(kernels.KERNELS) - 3))
+    assert {k.name: k.launches for k in kernels.KERNELS} == want
     assert wa == wb
     assert a.counters() == b.counters()
     assert a.audit_chain() == b.audit_chain()
@@ -449,7 +454,8 @@ def test_flood_through_kernels_matches_plain_run(card):
     wa = a.run()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     for name in ("extract_slots", "audit_commit", "loop_select",
-                 "loop_route", "codel_dequeue", "ring_append"):
+                 "loop_route", "codel_dequeue", "ring_append", "spec_check",
+                 "nic_refill", "link_send"):
         assert launches[name] > 0, name
     assert launches["phold_forward"] == 0
     assert b.run() == wa
@@ -617,13 +623,115 @@ def test_tcp_run_through_kernels_matches_plain_run(card):
     launches = {k.name: k.launches for k in kernels.KERNELS}
     for name in ("extract_slots", "audit_commit", "loop_select",
                  "loop_route", "codel_dequeue", "ring_append", "tcp_demux",
-                 "tcp_ack", "tcp_reorder", "tcp_out"):
+                 "tcp_ack", "tcp_reorder", "tcp_out", "spec_check",
+                 "nic_refill", "send_dequeue", "link_send"):
         assert launches[name] > 0, name
     assert b.run() == wa
     assert {k.name: k.launches for k in kernels.KERNELS} == launches
     assert a.counters() == b.counters()
     # the JAX package's chain (tests/test_torch_tcp.py, GOLDEN["lossy"])
     assert a.audit_chain() == b.audit_chain() == 0x8CF80602A987429A
+    na, nb = interop.state_to_numpy(a.state), interop.state_to_numpy(b.state)
+    for path in na:
+        assert np.array_equal(na[path], nb[path]), path
+
+
+# ---------------------------------------------------------------------------
+# the optimistic driver's kernels
+# ---------------------------------------------------------------------------
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("H,N,seed", [(64, 512, 0), (5000, 300_000, 1),
+                                      (7, 0, 2)])
+def test_spec_check_matches_plain(card, H, N, seed):
+    from chip_smoke import synthetic_spec_check
+
+    args, _ = synthetic_spec_check(H, N, card, seed)
+    n = kernels.SPEC_CHECK.launches
+    got = kernels.spec_check(*args)
+    assert kernels.SPEC_CHECK.launches == n + 1
+    _same(got, kernels.spec_check_plain(*args))
+    assert (int(got) == NEVER) == (N == 0)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_nic_refill_matches_plain(card, seed):
+    from chip_smoke import synthetic_nic_refill
+
+    args, _ = synthetic_nic_refill(4099, card, seed)
+    _same(kernels.nic_refill(*args), kernels.nic_refill_plain(*args))
+    # every host updated; one `now` for every host (the bulk gate)
+    _same(kernels.nic_refill(*args[:5]), kernels.nic_refill_plain(*args[:5]))
+    now = torch.tensor(2_500_000_000, device=card)
+    _same(kernels.nic_refill(*args[:4], now),
+          kernels.nic_refill_plain(*args[:4], now))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_send_dequeue_matches_plain(card, seed):
+    from chip_smoke import synthetic_send_dequeue
+
+    args, _ = synthetic_send_dequeue(3001, 64, 12, card, seed)
+    n = kernels.SEND_DEQUEUE.launches
+    got = kernels.send_dequeue(*args)
+    assert kernels.SEND_DEQUEUE.launches == n + 1
+    _same(got, kernels.send_dequeue_plain(*args))
+    assert got.sent.any() and not got.sent.all()
+
+
+@pytest.mark.parametrize("variant", ["table", "own_vertex", "single",
+                                     "broadcast"])
+def test_link_send_matches_plain(card, variant):
+    from chip_smoke import synthetic_link_send
+
+    args, kw = synthetic_link_send(5003, card, seed=len(variant))
+    args = list(args)
+    if variant == "own_vertex":
+        args[5] = None  # the hosts' own vertex column
+    if variant in ("single", "broadcast"):
+        args[6] = args[6][:1, :1].contiguous()
+        args[7] = torch.full((1, 1), 0.5, device=card)
+    if variant == "broadcast":
+        args[2] = torch.tensor(kw["bootstrap_end"] + 5, device=card)
+        args[3] = torch.tensor(False, device=card)
+    got = kernels.link_send(*args, **kw)
+    want = kernels.link_send_plain(*args, **kw)
+    _same(got, want)
+    assert got.deliver.any() and got.drop.any()
+    unreachable = args[0] & ~(got.deliver | got.drop)
+    assert bool(unreachable.any()) == (variant in ("table", "own_vertex"))
+
+
+@pytest.mark.parametrize("name", ["mixed_phold", "mixed_flood"])
+def test_optimistic_run_through_kernels_matches_plain_run(card, name):
+    """Optimistic runs that roll back, on the matrix path (PHOLD over the
+    two-vertex graph) and on the loop path (the mixed flood), through the
+    kernels and through the plain versions on the card: equal windows,
+    rollbacks, counters, chain and state arrays."""
+    import chip_smoke
+    from shadow_tpu_torch import interop
+
+    cfg = (chip_smoke.mixed_phold(1024, 4) if name == "mixed_phold"
+           else chip_smoke.mixed_flood())
+    a = build_simulation(cfg, device=card)
+    b = build_simulation(cfg, device=card)
+    b.ops = kernels.PLAIN_OPS
+    kernels.reset_launches()
+    ra = a.run_optimistic()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    assert launches["spec_check"] > 0 and ra[1] > 0
+    assert b.run_optimistic() == ra
+    assert {k.name: k.launches for k in kernels.KERNELS} == launches
+    assert a.counters() == b.counters()
+    assert a.audit_chain() == b.audit_chain()
+    if name == "mixed_flood":
+        assert a.audit_chain() == chip_smoke.MIXED_FLOOD_CHAIN
     na, nb = interop.state_to_numpy(a.state), interop.state_to_numpy(b.state)
     for path in na:
         assert np.array_equal(na[path], nb[path]), path

@@ -68,20 +68,20 @@ GOLDEN = {
     "lossless": {"final": {
         "chain": 0x05FB85052FD3A6E0, "events_committed": 169,
         "micro_steps": 198, "packets_sent": 97, "packets_dropped_loss": 0,
-        "retransmits": 0, "timeouts": 0, "digest": "ee348120d4433d80"}},
+        "retransmits": 0, "timeouts": 0, "digest": "2b8ed2f6d75f6366"}},
     "clients3": {"final": {
         "chain": 0x3B0BD7958BC61892, "events_committed": 201,
         "micro_steps": 195, "packets_sent": 111, "packets_dropped_loss": 0,
-        "retransmits": 0, "timeouts": 0, "digest": "57ef82afddcc2cca"}},
+        "retransmits": 0, "timeouts": 0, "digest": "5850b56c5a669339"}},
     "lossy": {"final": {
         "chain": 0x8CF80602A987429A, "events_committed": 308,
         "micro_steps": 298, "packets_sent": 163, "packets_dropped_loss": 4,
-        "retransmits": 8, "timeouts": 1, "digest": "07980c21e6abead8"},
-        "mid_digest": "114412241c43811a"},
+        "retransmits": 8, "timeouts": 1, "digest": "4f5e79716efa2014"},
+        "mid_digest": "0055bfb07321ed98"},
     "synloss": {"final": {
         "chain": 0x0E16377E9782E484, "events_committed": 51,
         "micro_steps": 69, "packets_sent": 32, "packets_dropped_loss": 3,
-        "retransmits": 8, "timeouts": 2, "digest": "31603a79a6c8e55c"}},
+        "retransmits": 8, "timeouts": 2, "digest": "70b84ea729bfb40f"}},
 }
 
 
