@@ -982,22 +982,24 @@ def synthetic_tcp_reorder(H: int, S: int, W: int, device, seed: int = 17):
             t(rs.integers(0, 10**7, hs), torch.int64)), {"mss": MSS}
 
 
-def profile_windows(card: str, sim, label: str, span: int) -> None:
+def profile_windows(card: str, sim, label: str, span: int,
+                    optimistic: bool = False) -> None:
     """Where a window's time goes: the windows of the next ``span`` ns run
     twice from one saved state (the state is never written into, so a
     copy of its containers restores it), first timed alone, then under
     the profiler; the device's busy time is the profiled run's kernels
     and copies, set against both runs' wall. The profiler's summary
     costs time in proportion to the launches traced, so the span stays
-    short."""
+    short. ``optimistic`` runs the windows through ``run_optimistic``."""
     from torch.profiler import ProfilerActivity, profile
 
+    run = sim.run_optimistic if optimistic else sim.run
     saved = sim.state.snapshot()
     first = sim._frontier(sim.stop_time).mn
     until = first + span
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run(until=until)
+    run(until=until)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     chain = sim.audit_chain()
@@ -1006,7 +1008,7 @@ def profile_windows(card: str, sim, label: str, span: int) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run(until=until)
+        run(until=until)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     if sim.audit_chain() != chain:
@@ -1341,6 +1343,8 @@ def phase_optimistic_kernels(card: str):
     t0 = time.perf_counter()
     sim = build_simulation(CONFIG4)
     best4 = capture_window(sim, CONFIG4_PATH, PHASE12_FROM)
+    profile_windows(card, sim, "phase 12 a config-4 optimistic window",
+                    8 * sim.runahead, optimistic=True)
     H = sim.num_hosts
     NQ = sim.state.subs["nic"].q_dst.shape[1]
     missing = [k for k in CONFIG4_PATH if k not in best4]

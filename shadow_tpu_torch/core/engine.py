@@ -698,14 +698,12 @@ class Simulation:
             f = self._frontier(stop)
         return windows
 
-    def window_step(self, ws: int, we: int, f: Frontier | None = None):
+    def window_step(self, ws: int, we: int, f: Frontier) -> None:
         """Process the window [ws, we) once, on the path the JAX package's
         step chooses for this window (``make_window_step``): the matrix
         path when every event below ``we`` has the bulk kind. ``f`` is the
-        frontier read for this ``we`` (read here when not given); the next
-        read gives the JAX step's ``min_next`` and ``xmit_min``."""
-        if f is None:
-            f = self._frontier(self.stop_time, we)
+        frontier read for this ``we``; the next read gives the JAX step's
+        ``min_next`` and ``xmit_min``."""
         if self._takes_matrix(f.other):
             self.step(ws, we)
         elif self.step_loop(ws, we, f.occ) == 0:

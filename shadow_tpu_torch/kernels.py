@@ -44,7 +44,7 @@ The optimistic driver and the network stack's NIC and link run four more:
   both window paths (``shadow_tpu/core/engine.py``, loop ``finish`` and
   ``run_matrix``): the earliest emission behind its destination's
   progress clock.
-* ``nic_refill`` (K13): the token buckets' ``nic.lazy_refill``.
+* ``nic_refill`` (K13): the token buckets' lazy refill, ``nic.lazy_refill``.
 * ``send_dequeue`` (K14): the fifo qdisc's dequeue, ``nic.peek_send``
   then ``nic.pop_send``.
 * ``link_send`` (K15): ``net/link.py:send``'s path lookup, per-host
@@ -1766,10 +1766,10 @@ REFILL_NS = NS_PER_MS  # the token buckets' refill grid
 
 
 def nic_refill_plain(rem, tick, refill, cap, now, mask=None):
-    """Plain version of ``nic.lazy_refill``: lanes of hosts without a real
-    event carry ``now`` = NEVER, where ``(now_tick - tick) * refill``
-    wraps; the select discards them, as in the JAX package. ``//`` floors
-    as JAX's does."""
+    """Plain version: the JAX package's ``nic.lazy_refill``. Lanes of
+    hosts without a real event carry ``now`` = NEVER, where
+    ``(now_tick - tick) * refill`` wraps; the select discards them, as in
+    the JAX package. ``//`` floors as JAX's does."""
     now_tick = now // REFILL_NS
     new_rem = torch.minimum(cap, rem + (now_tick - tick) * refill)
     new_rem = torch.where(now_tick > tick, new_rem, rem)

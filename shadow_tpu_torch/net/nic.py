@@ -5,8 +5,9 @@ The JAX package's ``net/nic.py``. Token buckets refill lazily from the
 per pump event. The send ring keeps arrival order (the fifo qdisc, whose
 dequeue is the kernel ``send_dequeue``); the round-robin qdisc consumes
 it mid-ring through the helpers at the bottom, which are PyTorch
-operations. The append is the kernel ``ring_append``, the refill the
-kernel ``nic_refill``.
+operations. The append is the kernel ``ring_append``; the lazy refill
+of the buckets (the JAX package's ``lazy_refill``) is the kernel
+``nic_refill``, which the stack calls through its window functions.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import dataclasses
 
 import torch
 
-from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core import state as state_mod
 from shadow_tpu_torch.core import simtime, soa
 from shadow_tpu_torch.core.state import PAYLOAD_WORDS
@@ -99,14 +99,6 @@ def count_rx(nic: NicState, mask, size) -> NicState:
         rx_packets=nic.rx_packets + mask.to(torch.int64),
         rx_bytes=nic.rx_bytes + torch.where(mask, size.to(torch.int64), 0),
     )
-
-
-def lazy_refill(rem, tick, refill, cap, now, mask=None,
-                ops=kernels.KERNEL_OPS):
-    """Apply every grid refill since ``tick``, clamped to the capacity (the
-    kernel ``nic_refill``). ``mask`` gates the lanes that update: lanes of
-    hosts without a real event carry ``now`` = NEVER."""
-    return ops.nic_refill(rem, tick, refill, cap, now, mask)
 
 
 def next_refill_time(now):

@@ -137,9 +137,8 @@ class NetStack:
         direct = torch.zeros(H, dtype=torch.bool, device=hosts.device)
         if params is not None:
             queued_any = self.disc.nonempty(state)
-            tx_rem, tx_tick = nic.lazy_refill(
-                n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now64, mask,
-                emitter.ops)
+            tx_rem, tx_tick = emitter.ops.nic_refill(
+                n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now64, mask)
             n = n.replace(tx_rem=tx_rem, tx_tick=tx_tick)
             size = pkt.total_bytes(payload)
             bootstrap = now64 < params.bootstrap_end
@@ -244,9 +243,8 @@ class NetStack:
 
         n = state.subs[nic.SUB]
         r = state.subs[codel.SUB]
-        rx_rem, rx_tick = nic.lazy_refill(
-            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, remote,
-            emitter.ops)
+        rx_rem, rx_tick = emitter.ops.nic_refill(
+            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, remote)
         n = n.replace(rx_rem=rx_rem, rx_tick=rx_tick)
         bootstrap = now < params.bootstrap_end
         size = pkt.total_bytes(ev.payload)
@@ -288,9 +286,8 @@ class NetStack:
         mask = ev.mask
         n = state.subs[nic.SUB]
         n = n.replace(send_pending=n.send_pending & ~mask)
-        tx_rem, tx_tick = nic.lazy_refill(
-            n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now, mask,
-            emitter.ops)
+        tx_rem, tx_tick = emitter.ops.nic_refill(
+            n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now, mask)
         n = n.replace(tx_rem=tx_rem, tx_tick=tx_tick)
         bootstrap = now < params.bootstrap_end
         state = state.with_sub(nic.SUB, n)
@@ -336,9 +333,8 @@ class NetStack:
         mask = ev.mask
         n = state.subs[nic.SUB]
         n = n.replace(recv_pending=n.recv_pending & ~mask)
-        rx_rem, rx_tick = nic.lazy_refill(
-            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, mask,
-            emitter.ops)
+        rx_rem, rx_tick = emitter.ops.nic_refill(
+            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, mask)
         n = n.replace(rx_rem=rx_rem, rx_tick=rx_tick)
         bootstrap = now < params.bootstrap_end
 
@@ -383,10 +379,10 @@ class NetStack:
         dev = n.rx_rem.device
         ws = torch.tensor(int(win_start), dtype=torch.int64, device=dev)
         G = self.deliver_batch
-        rx_rem, _ = nic.lazy_refill(n.rx_rem, n.rx_tick, n.rx_refill,
-                                    n.rx_cap, ws, ops=ops)
-        tx_rem, _ = nic.lazy_refill(n.tx_rem, n.tx_tick, n.tx_refill,
-                                    n.tx_cap, ws, ops=ops)
+        rx_rem, _ = ops.nic_refill(n.rx_rem, n.rx_tick, n.rx_refill,
+                                   n.rx_cap, ws)
+        tx_rem, _ = ops.nic_refill(n.tx_rem, n.tx_tick, n.tx_refill,
+                                   n.tx_cap, ws)
         if int(win_end) <= int(params.bootstrap_end):
             # the whole window inside bootstrap: tokens are not charged
             rx_ev = torch.full_like(rx_rem, G)

@@ -9,8 +9,8 @@
 * The stack's pieces on their own: ``codel_dequeue_plain`` against JAX
   ``codel.dequeue`` step by step on ``tests/test_net_stack.py``'s CoDel
   sequences and on seeded random router states; ``ring_append_plain``
-  against ``codel.enqueue`` and ``nic.enqueue_send``; ``lazy_refill`` on
-  ``test_net_stack.py``'s grid; ``bulk_gate`` on token debt.
+  against ``codel.enqueue`` and ``nic.enqueue_send``; ``lazy_refill``
+  (``kernels.nic_refill_plain``) on ``test_net_stack.py``'s grid; ``bulk_gate`` on token debt.
 * What the port refuses still raises, naming its ``ROADMAP.md`` item.
 
 Tolerance: exact equality everywhere (integer arithmetic; the CoDel
@@ -299,9 +299,9 @@ def test_lazy_refill_grid_matches_jax():
             jnp.asarray(rem), jnp.asarray(tick), jnp.asarray(refill),
             jnp.asarray(cap), jnp.asarray(now),
             None if mask is None else jnp.asarray(mask))
-        t = nic.lazy_refill(_t(rem), _t(tick), _t(refill), _t(cap),
-                            _t(np.asarray(now, np.int64)),
-                            None if mask is None else _t(mask))
+        t = kernels.nic_refill_plain(_t(rem), _t(tick), _t(refill), _t(cap),
+                                     _t(np.asarray(now, np.int64)),
+                                     None if mask is None else _t(mask))
         for g, w in zip(t, j):
             assert np.array_equal(g.numpy(), np.asarray(w))
         rem, tick = t[0].numpy(), t[1].numpy()

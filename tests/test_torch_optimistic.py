@@ -50,7 +50,7 @@ from shadow_tpu_torch.net import link as tlink
 from shadow_tpu_torch.net import nic as tnic
 from shadow_tpu_torch.net.qdisc import FifoDiscipline
 from shadow_tpu_torch.sim import build_simulation
-from chip_smoke import MIXED_GML, config4, mixed_flood
+from chip_smoke import MIXED_GML, config4, mixed_flood, tensors_of
 from test_optimistic import MIXED_YAML
 from test_torch_phold import assert_states_equal, jax_state_to_numpy
 
@@ -171,22 +171,6 @@ def test_floor_width_violation_refuses_commit():
     assert opt.audit_chain() == cons.audit_chain()
 
 
-def _tensors(obj, path=""):
-    """Every tensor reachable from a state: {path: tensor}."""
-    if isinstance(obj, torch.Tensor):
-        return {path: obj}
-    if isinstance(obj, dict):
-        items = obj.items()
-    elif hasattr(obj, "__dataclass_fields__"):
-        items = vars(obj).items()
-    else:
-        return {}
-    out = {}
-    for k, v in items:
-        out.update(_tensors(v, f"{path}.{k}"))
-    return out
-
-
 def test_rolled_back_attempt_leaves_snapshot_untouched():
     """Step MIXED_YAML's windows as the driver does, outside inference
     mode so every tensor keeps its version counter, until an attempt rolls
@@ -199,14 +183,14 @@ def test_rolled_back_attempt_leaves_snapshot_untouched():
     for _ in range(50):
         base = sim.state.snapshot()
         before = {p: (t, t._version, t.clone())
-                  for p, t in _tensors(base).items()}
+                  for p, t in tensors_of(base).items()}
         st, mn, viol = sim.attempt(base, ws, ws + 8 * cons)
         if viol < NEVER:
             break
         sim.state = st.with_host(done_t=neg1)
         ws = mn
     assert viol < NEVER, "no attempt rolled back"
-    after = _tensors(base)
+    after = tensors_of(base)
     assert sorted(after) == sorted(before)
     for p, (t, version, value) in before.items():
         assert after[p] is t, p
@@ -387,10 +371,9 @@ def test_nic_refill_plain_matches_jax():
             j = jnic.lazy_refill(*(jnp.asarray(a) for a in
                                    (rem, tick, refill, cap, now)),
                                  None if mask is None else jnp.asarray(mask))
-            tn = tnic.lazy_refill(_t(rem), _t(tick), _t(refill), _t(cap),
-                                  torch.as_tensor(now),
-                                  None if mask is None else _t(mask),
-                                  ops=kernels.PLAIN_OPS)
+            tn = kernels.nic_refill_plain(
+                _t(rem), _t(tick), _t(refill), _t(cap), torch.as_tensor(now),
+                None if mask is None else _t(mask))
             for g, w in zip(tn, j):
                 assert np.array_equal(g.numpy(), np.asarray(w))
             rem, tick = tn[0].numpy(), tn[1].numpy()
