@@ -499,6 +499,22 @@ def bound(bytes_moved: int, ops: int):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def merge_bound(sim) -> float:
+    """Milliseconds: the least time of one window's merge (B2, a stable
+    sort by time and gathers) on this simulation's shapes: every candidate
+    row read once (the tail's C rows, and the H·K emission rows of the
+    matrix path or the H·(Kc + O + B) dense cells and box slots of the
+    loop path) and the next pool's C rows written once; a row is its
+    time, four int32 columns and its packed payload."""
+    H, C = sim.num_hosts, sim.state.pool.capacity
+    row = 8 + 4 * 4 + 8 * sim.state.pool.payload.shape[1]
+    if sim.matrix_handler is not None:
+        cand = H * sim.K
+    else:
+        cand = H * (sim.K + 1 + sim.O + sim.B)
+    return bound((C + cand + C) * row, 0)[0]
+
+
 def kernel_bound(name: str, args, kw, out):
     """(ms, "bytes" or "operations"): the least time the card could take
     for this call's function on this call's data. Bytes: every input the
@@ -603,7 +619,7 @@ def kernel_bound(name: str, args, kw, out):
         return bound(nbytes(t, dst, src) + 8 * int(live.sum()) + 8,
                      4 * t.shape[0])
     if name == "nic_refill":
-        rem, now, mask = args[0], args[4], args[5]
+        rem, now, mask = args[0], args[4], (*args[5:], None)[0]
         return bound(nbytes(*args[:4], mask)
                      + per_host_bytes(now, rem.shape[0]) + nbytes(*out), 0)
     if name == "send_dequeue":
@@ -780,8 +796,9 @@ def activity(name: str, args, out) -> int:
         return int(args[0].sum())  # hosts handled
     if name == "spec_check":
         return int((args[0] != NEVER).sum())  # rows checked
-    if name == "nic_refill":
-        return args[0].shape[0] if args[5] is None else int(args[5].sum())
+    if name == "nic_refill":  # the mask, where given
+        mask = args[5] if len(args) > 5 else None
+        return args[0].shape[0] if mask is None else int(mask.sum())
     if name == "send_dequeue":
         return int(out.sent.sum())  # packets dequeued
     if name == "link_send":
@@ -1726,6 +1743,13 @@ def main() -> None:
 
     t_opt = time.perf_counter()
     opt_results, launches4, launchesm, launches_nic = optimistic_phases(card)
+
+    bounds = {name: merge_bound(build_simulation(cfg))
+              for name, cfg in (("config2", CONFIG2), ("config3", CONFIG3),
+                                ("config4", CONFIG4))}
+    bounds["phold"] = merge_bound(build_phold_flagship(**BENCH))
+    print(f"[{card}] merge (B2) bytes bound per window, ms: "
+          + json.dumps(bounds), flush=True)
 
     # one entry for each kernel on each main path: its launches in that
     # path's run, and its times and bound on that path's inputs
