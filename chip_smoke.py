@@ -80,8 +80,10 @@ power limit:
 13. config 4 at 50,176 hosts from t = 0 in one ``run_optimistic()``
     through the kernels, launch counts set to 0 just before it and read
     just after: windows, rollbacks, counters and chain equal to the JAX
-    package's (``REF4``), every kernel of its path launched; then the
-    kernels and the plain versions to 1.5 s, compared state by state;
+    package's (``REF4``), every kernel of its path launched; the same
+    config under the conservative ``run()``: the same chain and counters
+    but for the schedule's own; then the kernels and the plain versions
+    to 1.5 s under ``run_optimistic``, compared state by state;
 14. the mixed run through the kernels (rollbacks > 0; equal to
     ``REF_MIXED``) and through the plain versions, state by state; the
     16-host mixed flood, whose rollbacks take the loop path, likewise
@@ -1546,6 +1548,20 @@ def optimistic_phases(card: str):
     check_optimistic("phase 13", res4, c4, chain4, REF4)
     print(f"[{card}] phase 13 config 4 equal to the JAX package's windows, "
           f"rollbacks, counters and chain", flush=True)
+    del sim
+    # the same config under the conservative driver: the same history,
+    # counted in more windows (tests/test_optimistic.py's fingerprint
+    # leaves out the schedule's own counters)
+    sim, _, cc, cchain, _ = flood_run(
+        card, kernels.KERNEL_OPS,
+        "phase 13 config 4 under the conservative driver", CONFIG4)
+    schedule = ("micro_steps", "outbox_stall_deferred",
+                "pool_overflow_dropped")
+    if cchain != chain4 or {k: v for k, v in cc.items()
+                            if k not in schedule} != {
+                                k: v for k, v in c4.items()
+                                if k not in schedule}:
+        fail("phase 13: the conservative run's chain or counters differ")
     del sim
     cut = [optimistic_run(card, CONFIG4, ops,
                           f"phase 13 config 4 to {PHASE13_STOP} ({label})",
