@@ -26,8 +26,10 @@ power limit:
    shared-memory report;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
-   the card; kernel time and plain time (CUDA events, warmed, mean over
-   many launches) beside the bound; and the window step's parts, timed;
+   the card; the kernel's device time (200 calls replayed from one CUDA
+   graph), its issue time (the same calls back to back from Python) and
+   the plain version's time (CUDA events, warmed) beside the bound; and
+   the window step's parts, timed;
 4. the full bench-shape run through the kernels, launch counts set to 0
    just before it and read just after: the committed events, overflow,
    bulk-contract count and audit chain must equal the JAX package's
@@ -96,7 +98,8 @@ The line has one entry for each kernel on each main path (``path``
 "phold", "config2", "config3", "config4", "mixed" or
 "config3_100mbit"): its ``launches`` in that path's run (phase 4, 7, 10,
 13, 14 or 12), and its times and bound on that path's inputs (phase 3,
-6, 9 or 12). Any failure raises, exits non-zero and prints no ok line;
+6, 9 or 12); ``ms`` is the device time, ``issue_ms`` the issue time.
+Any failure raises, exits non-zero and prints no ok line;
 with no card, or without the rest of the repository beside it, it fails
 at once.
 
@@ -468,6 +471,39 @@ def time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card alone: reps calls captured
+    in one CUDA graph and replayed, timed with CUDA events, L2 warm. The
+    replay does no host work (no Python, no checks, no allocation), so
+    this is a call's device time: its kernels and the gaps between the
+    graph's nodes."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    del g
+    return a.elapsed_time(b) / reps
+
+
+def kernel_times(kern, plain) -> dict:
+    """``ms``: a kernel call's device time (``graph_ms``, 200 calls);
+    ``issue_ms``: the same calls back to back from Python (CUDA events,
+    200), which at small sizes measures the wrapper's host cost;
+    ``plain_ms``: the plain version's calls back to back (20)."""
+    return dict(ms=graph_ms(kern, 200), issue_ms=time_ms(kern, 200),
+                plain_ms=time_ms(plain, 20))
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -616,10 +652,12 @@ def kernel_bound(name: str, args, kw, out):
         return bound(reads + writes, 0)
     if name == "spec_check":
         t, dst, src, done_t = args
-        live = (t != NEVER) & (dst != src)
-        # each row once; the clock of each live row's destination
-        return bound(nbytes(t, dst, src) + 8 * int(live.sum()) + 8,
-                     4 * t.shape[0])
+        timed = t != NEVER
+        live = timed & (dst != src)
+        # each row's time; the dst and src of each row that has one; the
+        # clock of each cross-host row's destination; the result
+        return bound(nbytes(t) + 8 * int(timed.sum()) + 8 * int(live.sum())
+                     + 8, 4 * t.shape[0])
     if name == "nic_refill":
         rem, now, mask = args[0], args[4], (*args[5:], None)[0]
         return bound(nbytes(*args[:4], mask)
@@ -630,14 +668,19 @@ def kernel_bound(name: str, args, kw, out):
         # each host's head, tail and want; its head slot's row and dst
         return bound(nbytes(*args[2:]) + H * (4 * P + 4) + nbytes(*out), 0)
     if name == "link_send":
-        mask, dst, now, control, vertex = args[:5]
+        mask, now, control = args[0], args[2], args[3]
         H = mask.shape[0]
         rolled = out.deliver | out.drop
         n_draw = int((rolled & ~(now < kw["bootstrap_end"]) & ~control).sum())
         multi = args[6].shape[0] > 1
-        reads = (nbytes(mask, dst, vertex, args[8], args[9])
+        # every host's mask and counter (now and control may be one value
+        # for all); with several vertices each host's dst, vertex, its
+        # destination's vertex and its path's latency and reliability,
+        # with one the one path's; the key pair of each host that draws
+        reads = (nbytes(mask, args[9])
                  + per_host_bytes(now, H) + per_host_bytes(control, H)
-                 + (H * 16 if multi else 12))  # the path's latency, rel
+                 + (H * (4 + 4 + 4 + 8 + 4) if multi else 12)
+                 + 16 * n_draw)
         return bound(reads + nbytes(*out), UNIFORM_OPS * n_draw)
     raise ValueError(name)
 
@@ -669,8 +712,8 @@ def phase_kernels(card: str) -> dict:
     results["extract_slots"] = dict(
         err=err, bound=kernel_bound("extract_slots", (s_k1, H, K), {}, want),
         shape=f"N={N}",
-        ms=time_ms(lambda: kernels.extract_slots(s_k1, H, K), 200),
-        plain_ms=time_ms(lambda: kernels.extract_slots_plain(s_k1, H, K), 20),
+        **kernel_times(lambda: kernels.extract_slots(s_k1, H, K),
+                       lambda: kernels.extract_slots_plain(s_k1, H, K)),
     )
 
     # K1 / K2 on the window's dense matrix
@@ -688,9 +731,8 @@ def phase_kernels(card: str) -> dict:
     results["phold_forward"] = dict(
         err=err, bound=kernel_bound("phold_forward", fargs, fkw, want),
         shape=f"H={H} K={K} sends={n_send}",
-        ms=time_ms(lambda: kernels.phold_forward(*fargs, **fkw), 200),
-        plain_ms=time_ms(lambda: kernels.phold_forward_plain(*fargs, **fkw),
-                         20),
+        **kernel_times(lambda: kernels.phold_forward(*fargs, **fkw),
+                       lambda: kernels.phold_forward_plain(*fargs, **fkw)),
     )
 
     ob = st.obs
@@ -703,8 +745,8 @@ def phase_kernels(card: str) -> dict:
     results["audit_commit"] = dict(
         err=err, bound=kernel_bound("audit_commit", cargs, {}, want),
         shape=f"H={H} K={K} events={n_valid}",
-        ms=time_ms(lambda: kernels.audit_commit(*cargs), 200),
-        plain_ms=time_ms(lambda: kernels.audit_commit_plain(*cargs), 20),
+        **kernel_times(lambda: kernels.audit_commit(*cargs),
+                       lambda: kernels.audit_commit_plain(*cargs)),
     )
 
     # K12 on the window's emissions against the clocks after its commit
@@ -715,13 +757,14 @@ def phase_kernels(card: str) -> dict:
     results["spec_check"] = dict(
         err=err, bound=kernel_bound("spec_check", sargs, {}, want),
         shape=f"N={fw.time.shape[0]} xmit_min={int(want)}",
-        ms=time_ms(lambda: kernels.spec_check(*sargs), 200),
-        plain_ms=time_ms(lambda: kernels.spec_check_plain(*sargs), 20),
+        **kernel_times(lambda: kernels.spec_check(*sargs),
+                       lambda: kernels.spec_check_plain(*sargs)),
     )
     for name, r in results.items():
         print(f"[{card}] phase 3 {name}: {r['shape']} max_abs_err="
-              f"{r['err']} kernel_ms={r['ms']:.6f} plain_ms="
-              f"{r['plain_ms']:.6f} bound_ms={r['bound'][0]:.6f} "
+              f"{r['err']} kernel_ms={r['ms']:.6f} issue_ms="
+              f"{r['issue_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"bound_ms={r['bound'][0]:.6f} "
               f"({r['bound'][1]})", flush=True)
         if r["err"] != 0:
             fail(f"{name} disagrees with its plain version on the card")
@@ -1089,13 +1132,14 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         b = kernel_bound(name, args, kw, want)
         results[label] = dict(
             err=err, bound=b,
-            ms=time_ms(lambda: kern(*args, **kw), 200),
-            plain_ms=time_ms(lambda: plain(*args, **kw), 20),
+            **kernel_times(lambda: kern(*args, **kw),
+                           lambda: plain(*args, **kw)),
         )
         r = results[label]
         print(f"[{card}] {phase} {label}: max_abs_err={err}{extra} "
-              f"kernel_ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
-              f"bound_ms={b[0]:.6f} ({b[1]})", flush=True)
+              f"kernel_ms={r['ms']:.6f} issue_ms={r['issue_ms']:.6f} "
+              f"plain_ms={r['plain_ms']:.6f} bound_ms={b[0]:.6f} ({b[1]})",
+              flush=True)
         if err != 0:
             fail(f"{label} disagrees with its plain version on the card")
     return results
@@ -1786,6 +1830,7 @@ def main() -> None:
             "launches": counts[k.name],
             "max_abs_err": res[k.name]["err"],
             "ms": res[k.name]["ms"],
+            "issue_ms": res[k.name]["issue_ms"],
             "plain_ms": res[k.name]["plain_ms"],
             "bound_ms": res[k.name]["bound"][0],
             "bound_by": res[k.name]["bound"][1],

@@ -21,11 +21,13 @@
 // The draw is skipped where its value cannot matter (no roll, bootstrap,
 // control packet); the counter advances on every rolled lane all the same.
 //
-// Bound: bytes (the mask, dst, now, control flag, vertex, key pair and
-// counter in; deliver, drop, arrival and counter out) where few hosts
-// draw; where most do, the two threefry blocks a draw (~240 integer
-// operations) make it operations-bound. Design: one thread a host; `now`
-// and `control` may be one value broadcast to every host (stride 0).
+// Bound: bytes (every host's mask, now, control flag and counter, the
+// key pair of each host that draws, and with several vertices each
+// host's dst, vertex and path lookup, in; deliver, drop, arrival and
+// counter out); the two threefry blocks a draw (~240 integer
+// operations) take less time at the card's integer rate. Design: one
+// thread a host; `now` and `control` may be one value broadcast to every
+// host (stride 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

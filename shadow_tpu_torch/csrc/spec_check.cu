@@ -13,8 +13,9 @@
 // violation is possible at all; the gate only skips work, so the kernel
 // computes the exact form.
 //
-// Bound: bytes. Each row's 16 bytes are read once, plus the clock of each
-// cross-host row's destination (a gather). Design: a grid-stride loop,
+// Bound: bytes. Each row's time is read once, its dst and src where the
+// time is not NEVER, and the clock of each cross-host row's destination
+// (a gather). Design: a grid-stride loop,
 // each thread keeping its own minimum, a warp shuffle and a block
 // reduction in shared memory, then one 64-bit atomicMin a block. Event
 // times are non-negative, so unsigned order is their order. A one-thread

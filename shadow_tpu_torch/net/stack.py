@@ -21,7 +21,6 @@ from typing import Callable
 
 import torch
 
-from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core.engine import Emitter, EventView
 from shadow_tpu_torch.core.state import (
     KIND_NIC_REFILL,
@@ -367,7 +366,7 @@ class NetStack:
         return {KIND_PKT_DELIVER: self.deliver_batch}
 
     def bulk_gate(self, state: SimState, params: NetParams, win_start,
-                  win_end, ops=kernels.KERNEL_OPS):
+                  win_end, ops):
         """[H] int32: how many extra consecutive arrivals each host may
         batch this micro-step such that every one provably takes the
         direct paths. Buckets refill only to ``win_start`` and each

@@ -334,7 +334,7 @@ def test_bulk_gate_matches_jax_on_token_debt():
         jp = type("P", (), {"bootstrap_end": jnp.int64(boot)})()
         tp = type("P", (), {"bootstrap_end": boot})()
         want = np.asarray(js.bulk_gate(_J, jp, ws, we))
-        got = ts.bulk_gate(state, tp, ws, we).numpy()
+        got = ts.bulk_gate(state, tp, ws, we, kernels.PLAIN_OPS).numpy()
         assert np.array_equal(got, want)
     assert (fields["rx_rem"] < 0).any() and want.any()
 

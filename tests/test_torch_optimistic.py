@@ -14,6 +14,7 @@ four kernels of its path (``spec_check``, ``nic_refill``,
   (``GOLDEN``; a JAX compile of the flood's attempt takes ≈40 s on a CPU,
   so they are pinned): BASELINE config 4's shape at 64 hosts, and a
   flood over ``MIXED_YAML``'s graph, whose rollbacks take the loop path.
+  The same floods with JAX live are marked ``slow``.
 * A rolled-back attempt leaves its snapshot as it was: every tensor of
   the base state the same object, with the same version and values.
 * The four kernels' plain versions against the JAX functions on seeded
@@ -292,6 +293,19 @@ def test_optimistic_flood_matches_jax_golden(name):
     if name == "mixed_flood":
         assert rollbacks > 0
         assert got["win"]["matrix_dispatches"] == 0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(FLOODS))
+def test_optimistic_flood_matches_jax_live(name):
+    """The same floods with the JAX package run live: its summary equals
+    both the port's and the pinned golden."""
+    sim = build_simulation(FLOODS[name](), device="cpu")
+    windows, rollbacks = sim.run_optimistic()
+    got = summary(windows, rollbacks, sim.counters(),
+                  sim.obs_snapshot()["win"], sim.audit_chain(),
+                  interop.state_to_numpy(sim.state))
+    assert got == jax_golden(name) == GOLDEN[name]
 
 
 def test_undersized_pool_raises_instead_of_spinning():

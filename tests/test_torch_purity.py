@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``shadow_tpu_torch`` and not
-``chip_smoke.py`` imports jax or the JAX package, and the entry points run
-on the card unless asked for the CPU."""
+"""The port stands alone: no module of ``shadow_tpu_torch``, nor
+``chip_smoke.py`` or ``chip_ab.py`` (with the code it runs in its child
+processes), imports jax or the JAX package, and the entry points run on
+the card unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -20,14 +21,25 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "shadow_tpu"}
 
 def _sources():
     files = sorted((ROOT / "shadow_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+
+
+def _trees(path):
+    """The file's syntax tree, and that of each module-level ``CHILD``
+    string: code the script runs in a child process."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    yield tree
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "CHILD"
+                        for t in node.targets)):
+            yield ast.parse(node.value.value)
 
 
 @pytest.mark.parametrize(
     "path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    for node in (n for tree in _trees(path) for n in ast.walk(tree)):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
