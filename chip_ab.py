@@ -1,18 +1,24 @@
-"""Time the PHOLD bench run of two checkouts of the port on one card.
+"""Time the runs of two checkouts of the port on one card.
 
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR] [--reps N]
+        [--shapes phold,config2,config4]
 
-The run is ``chip_smoke.py``'s phase 4: ``build_phold_flagship`` at the
-bench shape (16384 hosts, msgload 8, stop and runtime 10 s, seed 42),
-then the conservative ``run()`` through the kernels. Each checkout runs
-in a process of its own, in the order PARENT, CHANGE, CHANGE, PARENT, so
-that a drift of the card or the host over the call falls on both alike.
-Each process builds its checkout's kernels, runs the shape once to warm
-up, then N times (default 5), and prints one JSON line a run. A checkout
-whose ops have ``spec_check`` also runs the shape with it replaced by a
+The shapes are ``chip_smoke.py``'s main runs through the kernels:
+``phold`` its phase 4 (``build_phold_flagship`` at the bench shape, 16384
+hosts, msgload 8, stop and runtime 10 s, seed 42, the conservative
+``run()``); ``config2`` its phase 7 (``chip_smoke.CONFIG2``, 10,240 hosts,
+``run()``); ``config4`` its phase 13 (``chip_smoke.CONFIG4``, 50,176
+hosts, ``run_optimistic()``), each taken from the checkout's own
+``chip_smoke.py``. Each checkout runs in a process of its own, in the
+order PARENT, CHANGE, CHANGE, PARENT, so that a drift of the card or the
+host over the call falls on both alike. Each process builds its
+checkout's kernels, then for each shape runs it once to warm up and N
+times (default 5), and prints one JSON line a run. On the PHOLD shape, a
+checkout whose ops have ``spec_check`` also runs with it replaced by a
 constant NEVER (what a conservative window's check costs), alternating
-which goes first. The last lines give the median ms per window of each
-checkout and variant, and the card's name and power limit.
+which goes first. The last lines give the median ms per window (PHOLD)
+or seconds a run (the others) of each checkout, shape and variant, and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,31 +36,50 @@ import torch
 from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core.simtime import NEVER
 from shadow_tpu_torch.flagship import build_phold_flagship
+from shadow_tpu_torch.sim import build_simulation
 
 tag, reps, stub_first = sys.argv[1], int(sys.argv[2]), sys.argv[3] == "1"
+shapes = sys.argv[4].split(",")
 kernels.build(force=True)
-variants = {"kernels": kernels.KERNEL_OPS}
-if hasattr(kernels.KERNEL_OPS, "spec_check"):
-    never = torch.full((), NEVER, dtype=torch.int64, device="cuda")
-    variants["spec_check stubbed"] = kernels.KERNEL_OPS._replace(
-        spec_check=lambda *a: never)
-order = sorted(variants, reverse=stub_first)
-for variant in order:
-    for rep in range(reps + 1):
-        sim = build_phold_flagship(num_hosts=16384, msgload=8, stop_s=10,
-                                   runtime_s=10, seed=42)
-        sim.ops = variants[variant]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        windows = sim.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        print(json.dumps({
-            "tree": tag, "variant": variant, "rep": rep, "wall_s": wall,
-            "windows": windows, "ms_per_window": wall / windows * 1e3,
-            "events_committed": sim.counters()["events_committed"],
-            "chain": f"{sim.audit_chain():#018x}"}), flush=True)
-        del sim
+
+
+def phold():
+    return build_phold_flagship(num_hosts=16384, msgload=8, stop_s=10,
+                                runtime_s=10, seed=42), "run"
+
+
+def flood(name, how):
+    import chip_smoke
+    return lambda: (build_simulation(getattr(chip_smoke, name)), how)
+
+
+builders = {"phold": phold, "config2": flood("CONFIG2", "run"),
+            "config4": flood("CONFIG4", "run_optimistic")}
+for shape in shapes:
+    variants = {"kernels": kernels.KERNEL_OPS}
+    if shape == "phold" and hasattr(kernels.KERNEL_OPS, "spec_check"):
+        never = torch.full((), NEVER, dtype=torch.int64, device="cuda")
+        variants["spec_check stubbed"] = kernels.KERNEL_OPS._replace(
+            spec_check=lambda *a: never)
+    for variant in sorted(variants, reverse=stub_first):
+        for rep in range(reps + 1):
+            sim, how = builders[shape]()
+            sim.ops = variants[variant]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = getattr(sim, how)()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            windows = res[0] if isinstance(res, tuple) else res
+            c = sim.counters()
+            print(json.dumps({
+                "tree": tag, "shape": shape, "variant": variant, "rep": rep,
+                "wall_s": wall, "windows": windows,
+                "micro_steps": c["micro_steps"],
+                "ms_per_window": wall / windows * 1e3,
+                "events_committed": c["events_committed"],
+                "chain": f"{sim.audit_chain():#018x}"}), flush=True)
+            del sim
 """
 
 
@@ -72,6 +97,7 @@ def main() -> None:
     ap.add_argument("change", nargs="?", default=os.path.dirname(
         os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--shapes", default="phold")
     args = ap.parse_args()
     card = card_line()
     runs = []
@@ -82,8 +108,8 @@ def main() -> None:
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
         out = subprocess.run(
             [sys.executable, "-c", CHILD, tag, str(args.reps),
-             "1" if i == 2 else "0"],
-            cwd=tree, env=env, capture_output=True, text=True, timeout=900)
+             "1" if i == 2 else "0", args.shapes],
+            cwd=tree, env=env, capture_output=True, text=True, timeout=1800)
         sys.stderr.write(out.stderr)
         if out.returncode != 0:
             sys.exit(f"chip_ab: the {tag} process failed "
@@ -91,17 +117,24 @@ def main() -> None:
         for ln in out.stdout.splitlines():
             print(f"[{card}] {ln}", flush=True)
             runs.append(json.loads(ln))
-    chains = {(r["chain"], r["events_committed"], r["windows"])
-              for r in runs}
-    if len(chains) != 1:
-        sys.exit(f"chip_ab: the runs disagree: {sorted(chains)}")
     medians = {}
-    for r in runs:
-        if r["rep"]:
-            medians.setdefault(f"{r['tree']}: {r['variant']}", []).append(
-                r["ms_per_window"])
-    print(json.dumps({k: {"median_ms_per_window": statistics.median(v),
-                          "runs": len(v)} for k, v in medians.items()}))
+    for shape in args.shapes.split(","):
+        of = [r for r in runs if r["shape"] == shape]
+        chains = {(r["chain"], r["events_committed"], r["windows"])
+                  for r in of}
+        if len(chains) != 1:
+            sys.exit(f"chip_ab: the {shape} runs disagree: {sorted(chains)}")
+        for r in of:
+            if r["rep"]:
+                key = f"{shape} {r['tree']}: {r['variant']}"
+                medians.setdefault(key, {"ms_per_window": [], "wall_s": []})
+                medians[key]["ms_per_window"].append(r["ms_per_window"])
+                medians[key]["wall_s"].append(r["wall_s"])
+    print(json.dumps({k: {"median_ms_per_window":
+                          statistics.median(v["ms_per_window"]),
+                          "median_wall_s": statistics.median(v["wall_s"]),
+                          "runs": len(v["wall_s"])}
+                      for k, v in medians.items()}))
     print(card)
 
 

@@ -23,13 +23,17 @@ power limit:
 1. the card: name, power limit, count, torch and CUDA versions;
 2. build the fifteen CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
    (one process per source, all at once) and print ptxas's register and
-   shared-memory report;
+   shared-memory report, and for ``loop_select`` and ``loop_route`` each
+   entry function's registers, shared memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
    graph), its issue time (the same calls back to back from Python) and
    the plain version's time (CUDA events, warmed) beside the bound; and
-   the window step's parts, timed;
+   the window step's parts, timed (``loop_route``, in phases 6, 9 and
+   12, updates its boxes in place: it takes a clone to compare, and each
+   timed call restores the boxes from a pristine copy first, the restores
+   alone timed and subtracted);
 4. the full bench-shape run through the kernels, launch counts set to 0
    just before it and read just after: the committed events, overflow,
    bulk-contract count and audit chain must equal the JAX package's
@@ -77,8 +81,11 @@ power limit:
     from t = 0; plus full-width synthetic tables for the branches the
     runs miss (K12 with violations and filler destinations, K13 with
     NEVER lanes and long idle gaps, K14 with wrapped rings, K15 with
-    loss 0.5, unreachable pairs and control packets): each equal bit for
-    bit to its plain version, timed beside its bound;
+    loss 0.5, unreachable pairs and control packets), and ``loop_select``
+    on a seeded synthetic micro-step at 100,352 hosts
+    (``bench.py:stage_udp_flood_100k``'s width) at config 4's K, B, O, G
+    and PP: each equal bit for bit to its plain version, timed beside its
+    bound, with the wide ``loop_select`` call's time over config 4's;
 13. config 4 at 50,176 hosts from t = 0 in one ``run_optimistic()``
     through the kernels, launch counts set to 0 just before it and read
     just after: windows, rollbacks, counters and chain equal to the JAX
@@ -115,6 +122,7 @@ config 4 and the mixed run (``CONFIG4``, ``MIXED``) through
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -382,6 +390,8 @@ PHASE12_FROM = 1_200_000_000
 # phase 13 holds the plain versions to the kernels over config 4's run to
 # this time (of 3 s)
 PHASE13_STOP = 1_500_000_000
+# phase 12's wide loop_select call: bench.py:stage_udp_flood_100k's hosts
+SELECT_WIDE = 100_352
 
 # phase 9 captures windows where the transfers run (the clients open at
 # 1 s; the first losses show within a few 20 ms round trips)
@@ -502,6 +512,27 @@ def kernel_times(kern, plain) -> dict:
     ``plain_ms``: the plain version's calls back to back (20)."""
     return dict(ms=graph_ms(kern, 200), issue_ms=time_ms(kern, 200),
                 plain_ms=time_ms(plain, 20))
+
+
+def in_place_times(kern, plain, args, kw) -> dict:
+    """``kernel_times`` of ``loop_route``, which updates its boxes in
+    place: each timed call first restores the boxes from a pristine copy
+    (one ``torch._foreach_copy_``), so every call routes the same records
+    into the same boxes; the same number of restores alone, timed the
+    same way, is subtracted from ``ms`` and ``issue_ms``."""
+    pristine = list(args[10])
+    work = clone_boxes(args[10])
+    restore = lambda: torch._foreach_copy_(list(work), pristine)  # noqa: E731
+
+    def call():
+        restore()
+        kern(*args[:10], work, **kw)
+
+    both, alone = kernel_times(call, lambda: plain(*args, **kw)), \
+        dict(ms=graph_ms(restore, 200), issue_ms=time_ms(restore, 200))
+    return dict(ms=both["ms"] - alone["ms"],
+                issue_ms=both["issue_ms"] - alone["issue_ms"],
+                plain_ms=both["plain_ms"], restore_ms=alone["ms"])
 
 
 def nbytes(*ts) -> int:
@@ -873,6 +904,21 @@ def branch_calls(name: str, flags: torch.Tensor) -> dict:
     return dict(zip(BRANCHES[name], map(int, any_bit)))
 
 
+def kept_args(name: str, args) -> tuple:
+    """The arguments a captured call keeps. ``loop_route`` updates the
+    loop's boxes in place on the card, and ``loop_select`` reads them, so
+    those two keep copies of the boxes made before the call."""
+    if name == "loop_select":
+        return (*args[:6], *(x.clone() for x in args[6:12]), *args[12:])
+    if name == "loop_route":
+        return (*args[:10], clone_boxes(args[10]))
+    return args
+
+
+def clone_boxes(boxes: kernels.Boxes) -> kernels.Boxes:
+    return kernels.Boxes(*(x.clone() for x in boxes))
+
+
 def capture_ops(best: dict, names=LOOP_PATH,
                 branches: dict | None = None) -> kernels.WindowOps:
     """The kernel wrappers, keeping for each kernel of ``names`` the
@@ -880,10 +926,11 @@ def capture_ops(best: dict, names=LOOP_PATH,
     and counting in ``branches`` the calls that took each TCP branch."""
     def wrap(name, fn):
         def call(*args, **kw):
+            kept = kept_args(name, args)
             out = fn(*args, **kw)
             score = activity(name, args, out)
             if name not in best or score > best[name][0]:
-                best[name] = (score, args, kw)
+                best[name] = (score, kept, kw)
             if branches is not None and name in BRANCHES:
                 for b, n in branch_calls(name, out.flags).items():
                     key = f"{name}.{b}"
@@ -1103,7 +1150,15 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         name = label.split()[0]
         kern = getattr(kernels, name)
         plain = getattr(kernels, f"{name}_plain")
-        got, want = kern(*args, **kw), plain(*args, **kw)
+        if name == "loop_route":  # in place: the kernel takes a clone
+            work = clone_boxes(args[10])
+            got = kern(*args[:10], work, **kw)
+            if any(g is not w for g, w in zip(got.boxes, work)):
+                fail(f"{phase}: loop_route returned other boxes than the "
+                     f"ones it was given")
+        else:
+            got = kern(*args, **kw)
+        want = plain(*args, **kw)
         torch.cuda.synchronize()
         if name == "loop_route":
             err = max(max_abs_err(got.boxes, want.boxes),
@@ -1130,16 +1185,17 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
             if "synthetic" in label and not all(hosts.values()):
                 fail(f"{phase}: {label} misses a branch: {hosts}")
         b = kernel_bound(name, args, kw, want)
-        results[label] = dict(
-            err=err, bound=b,
-            **kernel_times(lambda: kern(*args, **kw),
-                           lambda: plain(*args, **kw)),
-        )
+        times = (in_place_times(kern, plain, args, kw)
+                 if name == "loop_route" else
+                 kernel_times(lambda: kern(*args, **kw),
+                              lambda: plain(*args, **kw)))
+        results[label] = dict(err=err, bound=b, **times)
         r = results[label]
         print(f"[{card}] {phase} {label}: max_abs_err={err}{extra} "
               f"kernel_ms={r['ms']:.6f} issue_ms={r['issue_ms']:.6f} "
-              f"plain_ms={r['plain_ms']:.6f} bound_ms={b[0]:.6f} ({b[1]})",
-              flush=True)
+              f"plain_ms={r['plain_ms']:.6f} bound_ms={b[0]:.6f} ({b[1]})"
+              + (f" restore_ms={r['restore_ms']:.6f} (subtracted)"
+                 if "restore_ms" in r else ""), flush=True)
         if err != 0:
             fail(f"{label} disagrees with its plain version on the card")
     return results
@@ -1396,6 +1452,91 @@ def synthetic_link_send(H: int, device, seed: int = 31):
         "bootstrap_end": boot}
 
 
+def synthetic_select(H: int, K: int, B: int, O: int, PP: int, G: int,
+                     need_by_kind, device, seed: int = 37,
+                     bulk_kind: int = 0):
+    """A micro-step's selection inputs at any width, made with numpy in
+    bulk (as ``tests/test_torch_cuda.py:random_select_inputs`` makes them
+    host by host): dense rows sorted by (time, src, seq) with ties, cells
+    past the window and NEVER fillers, sources that are the host itself,
+    mostly the bulk kind; inboxes a quarter full whose free slots keep
+    stale src and seq (the first four hosts' all free); outboxes empty to
+    full; gates; and a pool budget that lets about the first half of the
+    hot hosts in. Returns (the wrapper's positional arguments, its
+    keyword arguments)."""
+    rs = np.random.default_rng(seed)
+    Kc = K + 1
+    ws, we = 1_000_000_000, 1_010_000_000
+    need_by_kind = np.asarray(
+        need_by_kind.cpu() if torch.is_tensor(need_by_kind)
+        else need_by_kind, np.int32)
+    NK = need_by_kind.shape[0]
+    hosts = np.arange(H)
+    live = np.arange(Kc)[None, :] < rs.integers(0, Kc + 1, H)[:, None]
+    t = ws + rs.integers(0, 5, (H, Kc)) * 2_500_000  # some at we
+    src = np.where(rs.random((H, Kc)) < 0.3, hosts[:, None],
+                   rs.integers(0, H, (H, Kc)))
+    seq = rs.integers(0, 50, (H, Kc))
+    t, src, seq = (np.where(live, x, v) for x, v in
+                   ((t, NEVER), (src, 0), (seq, 0)))
+    order = np.lexsort((seq, src, t), axis=-1)
+    d_t, d_s, d_q = (np.take_along_axis(x, order, axis=1)
+                     for x in (t, src, seq))
+    d_t[d_t >= we] = NEVER
+    d_k = np.where(rs.random((H, Kc)) < 0.8, bulk_kind,
+                   rs.integers(0, NK, (H, Kc)))
+    i_t = np.where(rs.random((H, B)) < 0.75, NEVER,
+                   ws + rs.integers(2, 4, (H, B)) * 2_500_000)
+    i_t[:4] = NEVER  # empty inboxes: stale keys compete at NEVER
+    o_count = np.minimum(rs.integers(0, O + 4, H), O) * (rs.random(H) < 0.5)
+    i32 = np.int32
+    cols = (d_t.astype(np.int64), d_s.astype(i32), d_q.astype(i32),
+            d_k.astype(i32),
+            rs.integers(-2**62, 2**62, (H, Kc, PP), dtype=np.int64),
+            rs.integers(0, K + 1, H).astype(i32), i_t.astype(np.int64),
+            rs.integers(0, H, (H, B)).astype(i32),
+            rs.integers(0, 50, (H, B)).astype(i32),
+            rs.integers(0, NK, (H, B)).astype(i32),
+            rs.integers(-2**62, 2**62, (H, B, PP), dtype=np.int64),
+            o_count.astype(i32), rs.integers(0, G, H).astype(i32),
+            hosts.astype(i32), need_by_kind)
+    box_used = int(o_count.sum() + (i_t != NEVER).sum())
+    kw = dict(K=K, G=G, O=O, bulk_kind=bulk_kind, self_excluded=True,
+              win_end=we, pool_budget=box_used + H // 2)
+    return tuple(torch.as_tensor(a, device=device) for a in cols), kw
+
+
+def compiler_view(reports: dict) -> dict:
+    """{kernel: {entry function: registers, shared memory bytes, spill
+    bytes (stores + loads)}} of the micro-step's two kernels, from nvcc's
+    -Xptxas -v reports."""
+    view = {}
+    for name in ("loop_select", "loop_route"):
+        funcs, cur = {}, None
+        for ln in reports[name].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                # the last name of the mangled one, and its template B
+                short = re.findall(r"\d+([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
+                                   m.group(1))
+                fn, b = short[-1] if short else (m.group(1), "")
+                cur = f"{fn}<{b}>" if b else fn
+                funcs[cur] = {"registers": None, "smem": 0, "spill": 0}
+            elif cur is not None:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", ln)
+                if m:
+                    funcs[cur]["spill"] = int(m.group(1)) + int(m.group(2))
+                m = re.search(r"Used (\d+) registers", ln)
+                if m:
+                    funcs[cur]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                if m:
+                    funcs[cur]["smem"] = int(m.group(1))
+        view[name] = funcs
+    return view
+
+
 def phase_optimistic_kernels(card: str):
     """Phase 12: the kernels of config 4's path on its busiest call in an
     optimistic window from PHASE12_FROM, those of the mixed run likewise,
@@ -1425,8 +1566,21 @@ def phase_optimistic_kernels(card: str):
         0, *synthetic_link_send(H, sim.device))
     best4["send_dequeue (synthetic rings)"] = (
         0, *synthetic_send_dequeue(H, NQ, 12, sim.device))
+    # loop_select at bench.py:stage_udp_flood_100k's width, at config
+    # 4's K, B, O, G and PP
+    _, sa, skw = best4["loop_select"]
+    wide = f"loop_select (synthetic H={SELECT_WIDE})"
+    best4[wide] = (0, *synthetic_select(
+        SELECT_WIDE, skw["K"], sa[6].shape[1], skw["O"], sa[4].shape[-1],
+        skw["G"], sa[14], sim.device, bulk_kind=skw["bulk_kind"]))
     del sim
     res4 = compare_calls(card, "phase 12 config 4", best4)
+    print(f"[{card}] phase 12 loop_select from H={H} to H={SELECT_WIDE}: "
+          f"kernel_ms {res4['loop_select']['ms']:.6f} -> "
+          f"{res4[wide]['ms']:.6f}, ratio "
+          f"{res4[wide]['ms'] / res4['loop_select']['ms']:.3f}; bound_ms "
+          f"{res4['loop_select']['bound'][0]:.6f} -> "
+          f"{res4[wide]['bound'][0]:.6f}", flush=True)
     viol = kernels.spec_check_plain(
         *best4["spec_check (synthetic violations)"][1])
     ls = kernels.link_send_plain(*best4["link_send (synthetic lossy)"][1],
@@ -1679,6 +1833,9 @@ def main() -> None:
                  if "registers" in ln or "spill" in ln or "smem" in ln]
         print(f"[{card}] phase 2 ptxas {k.name}: {' | '.join(usage)}",
               flush=True)
+    print(f"[{card}] phase 2 compiler view (registers, smem bytes, spill "
+          f"bytes by entry function): " + json.dumps(compiler_view(reports)),
+          flush=True)
 
     results = phase_kernels(card)
 

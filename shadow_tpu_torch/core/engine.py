@@ -40,6 +40,9 @@ reached. A micro-step is:
    column; each emits records through an ``Emitter``.
 4. ROUTE (kernel ``loop_route``): number the records in emit order; self
    emissions inside the window go to the inbox, the rest to the outbox.
+   The boxes belong to the window alone (never to ``SimState``, so no
+   snapshot holds them), and on the card the kernel updates them in
+   place.
 
 The window ends with one merge of the unconsumed dense cells, the tail and
 the boxes. The driver reads the device once a micro-step: how many hosts

@@ -1,5 +1,5 @@
 // K5 loop_route: route one micro-step's emissions into the inbox and
-// outbox of the loop path.
+// outbox of the loop path, in place.
 //
 // Replaces the routing loop of shadow_tpu/core/engine.py's micro-step
 // (make_loop_fns.body, "route emissions"): the records are routed in the
@@ -18,11 +18,18 @@
 //
 // Bound: bytes. The function reads the records, each active host's inbox
 // times, outbox count and deferred key, and writes one box cell per
-// placed record. Design: one thread per host, which copies its box rows
-// and applies its records in order; hosts are independent. The copy
-// keeps the kernel out of place, as the engine's state is, and is not
-// part of the bound; the rows are short (B, O <= 64 slots), so a
-// thread's reads stay within a few cache lines.
+// placed record. Design: one thread per host applies its records in
+// emit order, straight into the boxes it is given; hosts are
+// independent, and the record reads are coalesced (r = e * H + h). The
+// boxes are the micro-step loop's own (Simulation.step_loop makes them
+// fresh each window and replaces them with the result of each call; no
+// snapshot or rollback sees them), so nothing needs the rows as they
+// were, and the kernel writes no copy of them: a host touches only the
+// cells its records fill. Inserts only fill inbox slots, so the first
+// free slot moves forward only, and each inbox time is read at most once.
+// The record inputs are read-only for the call (__ldg), and each thread
+// reads the masks of 32 records together before it walks the set ones,
+// so their loads overlap instead of waiting one on another.
 
 #include <cuda_runtime.h>
 
@@ -46,20 +53,13 @@ struct Args {
   const long long* defer_t;
   const int* defer_s;
   const int* defer_q;
-  const long long *i_t;
-  const int *i_s, *i_q, *i_k;
-  const long long* i_p;
-  const long long* o_t;
-  const int *o_d, *o_s, *o_q, *o_k;
-  const long long* o_p;
-  const int* o_count;
-  long long* n_i_t;
-  int *n_i_s, *n_i_q, *n_i_k;
-  long long* n_i_p;
-  long long* n_o_t;
-  int *n_o_d, *n_o_s, *n_o_q, *n_o_k;
-  long long* n_o_p;
-  int* n_o_count;
+  long long* i_t;  // the boxes, updated in place
+  int *i_s, *i_q, *i_k;
+  long long* i_p;
+  long long* o_t;
+  int *o_d, *o_s, *o_q, *o_k;
+  long long* o_p;
+  int* o_count;
   int* n_seq_next;
   long long* stats;
   int E, H, B, O, PP;
@@ -70,65 +70,71 @@ __global__ void loop_route_kernel(Args a) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= a.H) return;
   const long long ib = (long long)h * a.B, ob = (long long)h * a.O;
-  for (int b = 0; b < a.B; ++b) {
-    a.n_i_t[ib + b] = a.i_t[ib + b];
-    a.n_i_s[ib + b] = a.i_s[ib + b];
-    a.n_i_q[ib + b] = a.i_q[ib + b];
-    a.n_i_k[ib + b] = a.i_k[ib + b];
-  }
-  for (long long w = 0; w < (long long)a.B * a.PP; ++w)
-    a.n_i_p[ib * a.PP + w] = a.i_p[ib * a.PP + w];
-  for (int o = 0; o < a.O; ++o) {
-    a.n_o_t[ob + o] = a.o_t[ob + o];
-    a.n_o_d[ob + o] = a.o_d[ob + o];
-    a.n_o_s[ob + o] = a.o_s[ob + o];
-    a.n_o_q[ob + o] = a.o_q[ob + o];
-    a.n_o_k[ob + o] = a.o_k[ob + o];
-  }
-  for (long long w = 0; w < (long long)a.O * a.PP; ++w)
-    a.n_o_p[ob * a.PP + w] = a.o_p[ob * a.PP + w];
-
-  const int me = a.gid[h];
-  const long long dt = a.defer_t[h];
-  const int ds = a.defer_s[h], dq = a.defer_q[h];
-  int seq_next = a.seq_next[h], count = a.o_count[h];
+  const int me = __ldg(&a.gid[h]);
+  int seq_next = __ldg(&a.seq_next[h]);
+  int count = -1;  // the outbox count, read at the first outbox record
+  int free_slot = -1;  // the first free inbox slot, found at the first self
+  long long dt = 0;
+  int ds = 0, dq = 0;
   long long emitted = 0, deferred = 0, dropped = 0;
-  for (int e = 0; e < a.E; ++e) {
-    const long long r = (long long)e * a.H + h;
-    if (!a.m[r]) continue;
-    const int seq = seq_next++;
-    const long long t = a.t[r];
-    const int d = a.d[r], k = a.k[r];
-    ++emitted;
-    const bool is_self =
-        d == me && t < a.win_end && key_lt(t, me, seq, dt, ds, dq);
-    int free_slot = -1;
-    for (int b = 0; b < a.B && free_slot < 0; ++b)
-      if (a.n_i_t[ib + b] == kNever) free_slot = b;
-    if (is_self && free_slot >= 0) {
-      const long long i = ib + free_slot;
-      a.n_i_t[i] = t;
-      a.n_i_s[i] = me;
-      a.n_i_q[i] = seq;
-      a.n_i_k[i] = k;
-      for (int w = 0; w < a.PP; ++w) a.n_i_p[i * a.PP + w] = a.p[r * a.PP + w];
-      continue;
-    }
-    if (is_self) ++deferred;
-    if (count < a.O) {
-      const long long i = ob + count;
-      a.n_o_t[i] = t;
-      a.n_o_d[i] = d;
-      a.n_o_s[i] = me;
-      a.n_o_q[i] = seq;
-      a.n_o_k[i] = k;
-      for (int w = 0; w < a.PP; ++w) a.n_o_p[i * a.PP + w] = a.p[r * a.PP + w];
-      ++count;
-    } else {
-      ++dropped;
+  const unsigned char* m = (const unsigned char*)a.m;
+  // the masks of 32 records at a time, read together, then the set ones
+  // in emit order
+  for (int e0 = 0; e0 < a.E; e0 += 32) {
+    const int n = min(32, a.E - e0);
+    unsigned bits = 0;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j)
+      bits |= (unsigned)(__ldg(&m[(long long)(e0 + j) * a.H + h]) != 0) << j;
+    for (; bits; bits &= bits - 1) {
+      const long long r = (long long)(e0 + __ffs(bits) - 1) * a.H + h;
+      const int seq = seq_next++;
+      const long long t = __ldg(&a.t[r]);
+      const int d = __ldg(&a.d[r]), k = __ldg(&a.k[r]);
+      ++emitted;
+      bool is_self = d == me && t < a.win_end;
+      if (is_self) {
+        if (free_slot < 0) {
+          dt = __ldg(&a.defer_t[h]);
+          ds = __ldg(&a.defer_s[h]);
+          dq = __ldg(&a.defer_q[h]);
+          free_slot = 0;
+          while (free_slot < a.B && a.i_t[ib + free_slot] != kNever)
+            ++free_slot;
+        }
+        is_self = key_lt(t, me, seq, dt, ds, dq);
+      }
+      if (is_self && free_slot < a.B) {
+        const long long i = ib + free_slot;
+        a.i_t[i] = t;
+        a.i_s[i] = me;
+        a.i_q[i] = seq;
+        a.i_k[i] = k;
+        for (int w = 0; w < a.PP; ++w)
+          a.i_p[i * a.PP + w] = __ldg(&a.p[r * a.PP + w]);
+        ++free_slot;
+        while (free_slot < a.B && a.i_t[ib + free_slot] != kNever)
+          ++free_slot;
+        continue;
+      }
+      if (is_self) ++deferred;
+      if (count < 0) count = a.o_count[h];
+      if (count < a.O) {
+        const long long i = ob + count;
+        a.o_t[i] = t;
+        a.o_d[i] = d;
+        a.o_s[i] = me;
+        a.o_q[i] = seq;
+        a.o_k[i] = k;
+        for (int w = 0; w < a.PP; ++w)
+          a.o_p[i * a.PP + w] = __ldg(&a.p[r * a.PP + w]);
+        ++count;
+      } else {
+        ++dropped;
+      }
     }
   }
-  a.n_o_count[h] = count;
+  if (count >= 0) a.o_count[h] = count;
   a.n_seq_next[h] = seq_next;
   a.stats[3LL * h] = emitted;
   a.stats[3LL * h + 1] = deferred;
@@ -140,26 +146,18 @@ __global__ void loop_route_kernel(Args a) {
 extern "C" int loop_route(
     const void* m, const void* t, const void* d, const void* k, const void* p,
     const void* seq_next, const void* gid, const void* defer_t,
-    const void* defer_s, const void* defer_q, const void* i_t,
-    const void* i_s, const void* i_q, const void* i_k, const void* i_p,
-    const void* o_t, const void* o_d, const void* o_s, const void* o_q,
-    const void* o_k, const void* o_p, const void* o_count, void* n_i_t,
-    void* n_i_s, void* n_i_q, void* n_i_k, void* n_i_p, void* n_o_t,
-    void* n_o_d, void* n_o_s, void* n_o_q, void* n_o_k, void* n_o_p,
-    void* n_o_count, void* n_seq_next, void* stats, int E, int H, int B,
-    int O, int PP, long long win_end, void* stream) {
+    const void* defer_s, const void* defer_q, void* i_t, void* i_s,
+    void* i_q, void* i_k, void* i_p, void* o_t, void* o_d, void* o_s,
+    void* o_q, void* o_k, void* o_p, void* o_count, void* n_seq_next,
+    void* stats, int E, int H, int B, int O, int PP, long long win_end,
+    void* stream) {
   Args a{(const bool*)m, (const long long*)t, (const int*)d, (const int*)k,
          (const long long*)p, (const int*)seq_next, (const int*)gid,
          (const long long*)defer_t, (const int*)defer_s,
-         (const int*)defer_q, (const long long*)i_t, (const int*)i_s,
-         (const int*)i_q, (const int*)i_k, (const long long*)i_p,
-         (const long long*)o_t, (const int*)o_d, (const int*)o_s,
-         (const int*)o_q, (const int*)o_k, (const long long*)o_p,
-         (const int*)o_count, (long long*)n_i_t, (int*)n_i_s, (int*)n_i_q,
-         (int*)n_i_k, (long long*)n_i_p, (long long*)n_o_t, (int*)n_o_d,
-         (int*)n_o_s, (int*)n_o_q, (int*)n_o_k, (long long*)n_o_p,
-         (int*)n_o_count, (int*)n_seq_next, (long long*)stats, E, H, B, O,
-         PP, win_end};
+         (const int*)defer_q, (long long*)i_t, (int*)i_s, (int*)i_q,
+         (int*)i_k, (long long*)i_p, (long long*)o_t, (int*)o_d,
+         (int*)o_s, (int*)o_q, (int*)o_k, (long long*)o_p, (int*)o_count,
+         (int*)n_seq_next, (long long*)stats, E, H, B, O, PP, win_end};
   if (H > 0) {
     const int threads = 128;
     loop_route_kernel<<<(H + threads - 1) / threads, threads, 0,

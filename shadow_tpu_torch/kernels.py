@@ -21,7 +21,8 @@ The micro-step loop path and the network stack run the other four:
   candidate choice, bulk batch plan, outbox and pool-headroom gates of
   ``shadow_tpu/core/engine.py:make_loop_fns.body``.
 * ``loop_route`` (K5): the routing of one micro-step's emissions into the
-  per-host inbox and outbox, in emit order (the same ``body``).
+  per-host inbox and outbox, in emit order (the same ``body``); on the
+  card it updates the boxes in place.
 * ``codel_dequeue`` (K6): the CoDel router's dequeue,
   ``shadow_tpu/net/codel.py:dequeue``.
 * ``ring_append`` (K7): a masked append to a per-host ring, for the
@@ -128,14 +129,15 @@ LOOP_SELECT = Kernel(
     "loop_select",
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
      _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs
+     _P, _L,  # scratch and its bytes
      _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _P),
 )
 LOOP_ROUTE = Kernel(
     "loop_route",
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # records, seq_next, keys
-     _P, _P, _P, _P, _P,  # inbox
-     _P, _P, _P, _P, _P, _P, _P,  # outbox
-     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs
+     _P, _P, _P, _P, _P,  # inbox, updated in place
+     _P, _P, _P, _P, _P, _P, _P,  # outbox, updated in place
+     _P, _P,  # seq_next and stats out
      _I, _I, _I, _I, _I, _L, _P),
 )
 CODEL_DEQUEUE = Kernel(
@@ -525,6 +527,8 @@ def audit_commit(d_t, d_s, d_k, gid, host_digest, host_events, host_last_t,
 
 # the largest inbox the kernel's tournament holds in registers
 MAX_INBOX = 32
+# hosts a block of the kernel plans (kThreads in csrc/loop_select.cu)
+SELECT_BLOCK = 128
 
 
 def key_lt(t1, s1, q1, t2, s2, q2):
@@ -682,8 +686,9 @@ def loop_select(d_t, d_s, d_q, d_k, d_p, ptr, i_t, i_s, i_q, i_k, i_p,
                 bulk_kind: int, self_excluded: bool, win_end: int,
                 pool_budget: int) -> SelectOut:
     """Choose each host's event(s) for one micro-step (see
-    ``loop_select_plain``); one block scans the headroom gate over all
-    hosts."""
+    ``loop_select_plain``). On the card: one thread a host over
+    ``ceil(H / SELECT_BLOCK)`` blocks, in two launches (plan, then the
+    headroom gate's prefix and the outputs) that count as one call."""
     args = (d_t, d_s, d_q, d_k, d_p, ptr, i_t, i_s, i_q, i_k, i_p, o_count,
             gid, need_by_kind)
     kw = dict(K=K, G=G, O=O, bulk_kind=bulk_kind,
@@ -724,9 +729,14 @@ def loop_select(d_t, d_s, d_q, d_k, d_p, ptr, i_t, i_s, i_q, i_k, i_p,
         stalled=e(torch.bool, H), ptr=e(torch.int32, H),
         inbox_time=e(torch.int64, H, B),
     )
-    _launch(LOOP_SELECT, *ins, *(t.data_ptr() for t in out), H, Kc, B, PP,
-            NK, K, G, win_end, pool_budget, O, bulk_kind,
-            int(self_excluded), _stream(d_t))
+    # the block totals, the plan words and the needs
+    blocks = -(-H // SELECT_BLOCK)
+    scratch = torch.empty(16 * blocks + 8 * H, dtype=torch.uint8,
+                          device=dev)
+    _launch(LOOP_SELECT, *ins, *(t.data_ptr() for t in out),
+            scratch.data_ptr(), scratch.numel(), H, Kc, B, PP, NK, K, G,
+            win_end, pool_budget, O, bulk_kind, int(self_excluded),
+            _stream(d_t))
     return out
 
 
@@ -845,7 +855,16 @@ def loop_route_plain(m, t, d, k, p, seq_next, gid, defer_t, defer_s, defer_q,
 def loop_route(m, t, d, k, p, seq_next, gid, defer_t, defer_s, defer_q,
                boxes: Boxes, *, win_end: int) -> RouteOut:
     """Route one micro-step's E emission records, stacked [E, H] (payload
-    [E, H, PP] packed), into the boxes (see ``loop_route_plain``)."""
+    [E, H, PP] packed), into the boxes (see ``loop_route_plain``).
+
+    On the card the kernel writes into ``boxes`` in place and returns
+    them as ``RouteOut.boxes``, the very tensors it was given: the
+    micro-step loop owns its boxes (``Simulation.step_loop`` makes them
+    each window and replaces them with each call's result), so nothing
+    reads the rows as they were. The plain version, on the CPU, returns
+    new tensors. Either way the caller takes the boxes from the result
+    and does not read the ones it passed; to compare the two versions,
+    hand the kernel a clone."""
     args = (m, t, d, k, p, seq_next, gid, defer_t, defer_s, defer_q)
     if not _on_card(*args, *boxes):
         return loop_route_plain(*args, boxes, win_end=win_end)
@@ -873,14 +892,11 @@ def loop_route(m, t, d, k, p, seq_next, gid, defer_t, defer_s, defer_q,
               (torch.int64, (H, O, PP)), (torch.int32, (H,)))
     bins = tuple(_check(x, dt, sh, f"boxes.{n}") for x, (dt, sh), n in
                  zip(boxes, shapes, Boxes._fields))
-    obox = Boxes(*(torch.empty(sh, dtype=dt, device=dev)
-                   for dt, sh in shapes))
-    out = RouteOut(boxes=obox,
+    out = RouteOut(boxes=boxes,
                    seq_next=torch.empty(H, dtype=torch.int32, device=dev),
                    stats=torch.empty((H, 3), dtype=torch.int64, device=dev))
-    _launch(LOOP_ROUTE, *ins, *bins, *(x.data_ptr() for x in obox),
-            out.seq_next.data_ptr(), out.stats.data_ptr(), E, H, B, O, PP,
-            win_end, _stream(m))
+    _launch(LOOP_ROUTE, *ins, *bins, out.seq_next.data_ptr(),
+            out.stats.data_ptr(), E, H, B, O, PP, win_end, _stream(m))
     return out
 
 

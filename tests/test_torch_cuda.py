@@ -7,8 +7,11 @@ rounding, so there is no tolerance. Inputs come from real windows of
 small PHOLD runs, plus seeded numpy variations (draw counters about to
 wrap, random seq numbers, lossy and multi-vertex topologies); the loop
 path's kernels take seeded random states (``random_*`` below: NEVER
-lanes, full rings and boxes, key ties, token debt, drop mode) and whole
-runs of a congested UDP flood; the TCP kernels take seeded lossy tables
+lanes, full rings and boxes, key ties, token debt, drop mode;
+``chip_smoke.synthetic_select`` at widths over many blocks, with pool
+budgets that bind at a block boundary) and whole runs of a congested UDP
+flood; ``loop_route`` updates its boxes in place, so it is handed a
+clone; the TCP kernels take seeded lossy tables
 (``chip_smoke.synthetic_tcp_*`` and ``random_tcp_*``: every branch of
 the ACK and reorder blocks, sequence numbers across the wrap, slots
 outside [0, S) on masked-off hosts) and a whole lossy TCP run; the
@@ -382,6 +385,68 @@ def test_loop_select_matches_plain(card, seed):
         _eq(got, kernels.loop_select_plain(*args, **kw))
 
 
+def _need_hot(args, kw):
+    """Each host's need where it is hot, 0 elsewhere: the taken events of
+    the same call with no outbox or pool limit (the batch plan depends on
+    neither), where every hot host is valid."""
+    free = kernels.loop_select_plain(*args, **{**kw, "O": 2**30,
+                                               "pool_budget": 2**62})
+    need_by_kind = args[14]
+    k0 = free.take_k[:, 0].long()
+    known = (k0 >= 0) & (k0 < need_by_kind.shape[0])
+    base = torch.where(known, need_by_kind[k0.clamp(0, need_by_kind.shape[0]
+                                                    - 1)], 0)
+    taken = (free.take_t != NEVER).sum(dim=1)  # the head and its batch
+    return torch.where(free.valid, base * taken, 0).long()
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 32])
+@pytest.mark.parametrize("H,K", [(3 * 256 + 17, 8), (50_176, 4)])
+def test_loop_select_across_blocks_matches_plain(card, H, K, B):
+    """Widths over several blocks and no multiple of the block: a random
+    budget, one that stalls host 0, and one whose first stall is the first
+    host of the second block (the prefix carried across blocks); inboxes
+    of B slots whose free slots keep stale src and seq."""
+    from chip_smoke import synthetic_select
+
+    G, O = 4, 8
+    args, kw = synthetic_select(H, K, B, O, 6, G,
+                                np.array([1, 2, 1, 3], np.int32), card,
+                                seed=H + B, bulk_kind=2)
+    args = list(args)
+    # hosts 0 and SELECT_BLOCK hot: their dense head at the window start,
+    # first in key order; room for any need
+    for h in (0, kernels.SELECT_BLOCK):
+        args[0][h, 0], args[1][h, 0], args[2][h, 0] = 1_000_000_000, 0, 0
+        args[5][h] = 0
+        args[11][h] = 0
+    stale = args[6] == NEVER
+    assert bool((stale & ((args[7] != 0) | (args[8] != 0))).any())
+    need = _need_hot(args, kw)
+    assert int(need[0]) > 0 and int(need[kernels.SELECT_BLOCK]) > 0
+    box_used = int(args[11].sum() + (args[6] != NEVER).sum())
+    cum = torch.cumsum(need, dim=0)
+    budgets = {"random": kw["pool_budget"],
+               "host 0": box_used + int(need[0]) - 1,
+               "second block": box_used + int(cum[kernels.SELECT_BLOCK]) - 1}
+    # no pool limit: every hot host with room is valid
+    free = kernels.loop_select_plain(*args, **{**kw, "pool_budget": 2**62})
+    S = kernels.SELECT_BLOCK
+    assert bool(free.valid[0]) and bool(free.valid[S])
+    for what, budget in budgets.items():
+        kw["pool_budget"] = budget
+        n = kernels.LOOP_SELECT.launches
+        got = kernels.loop_select(*args, **kw)
+        assert kernels.LOOP_SELECT.launches == n + 1
+        want = kernels.loop_select_plain(*args, **kw)
+        if what == "host 0":
+            assert bool(want.stalled[0]) and not bool(want.valid.any())
+        if what == "second block":
+            assert torch.equal(want.valid[:S], free.valid[:S])
+            assert bool(want.stalled[S]) and not bool(want.valid[S:].any())
+        _eq(got, want)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_loop_route_matches_plain(card, seed):
     rs = np.random.default_rng(100 + seed)
@@ -390,8 +455,35 @@ def test_loop_route_matches_plain(card, seed):
     bx = kernels.Boxes(**to_torch(boxes, card))
     args = [r[k] for k in ("m", "t", "d", "k", "p", "seq_next", "gid",
                            "defer_t", "defer_s", "defer_q")]
-    got = kernels.loop_route(*args, bx, **kw)
+    got = kernels.loop_route(*args, kernels.Boxes(*(x.clone() for x in bx)),
+                             **kw)
     want = kernels.loop_route_plain(*args, bx, **kw)
+    _eq(got.boxes, want.boxes)
+    _eq(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("E", [2, 9, 40])
+def test_loop_route_in_place_matches_plain(card, E):
+    """The kernel writes into the boxes it is given and returns them;
+    over several blocks, with full inboxes (self emissions deferred) and
+    full outboxes (records dropped), and with more records than the 32
+    whose masks the kernel reads at a time."""
+    rs = np.random.default_rng(150 + E)
+    H, B, O = 3 * 256 + 17, 4, 6
+    records, boxes, kw = random_route_inputs(rs, H=H, E=E, B=B, O=O)
+    boxes["i_t"][: H // 4] = 1_000_000_000 + rs.integers(0, 4, (H // 4, B))
+    boxes["o_count"][H // 4: H // 2] = O
+    r = to_torch(records, card)
+    bx = kernels.Boxes(**to_torch(boxes, card))
+    args = [r[k] for k in ("m", "t", "d", "k", "p", "seq_next", "gid",
+                           "defer_t", "defer_s", "defer_q")]
+    work = kernels.Boxes(*(x.clone() for x in bx))
+    n = kernels.LOOP_ROUTE.launches
+    got = kernels.loop_route(*args, work, **kw)
+    assert kernels.LOOP_ROUTE.launches == n + 1
+    assert all(g is w for g, w in zip(got.boxes, work))
+    want = kernels.loop_route_plain(*args, bx, **kw)
+    assert int(want.stats[:, 1].sum()) > 0 and int(want.stats[:, 2].sum()) > 0
     _eq(got.boxes, want.boxes)
     _eq(got[1:], want[1:])
 
