@@ -1,14 +1,15 @@
 """Time the runs of two checkouts of the port on one card.
 
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR] [--reps N]
-        [--shapes phold,config2,config4]
+        [--shapes phold,config2,config3,config4]
 
 The shapes are ``chip_smoke.py``'s main runs through the kernels:
 ``phold`` its phase 4 (``build_phold_flagship`` at the bench shape, 16384
 hosts, msgload 8, stop and runtime 10 s, seed 42, the conservative
 ``run()``); ``config2`` its phase 7 (``chip_smoke.CONFIG2``, 10,240 hosts,
-``run()``); ``config4`` its phase 13 (``chip_smoke.CONFIG4``, 50,176
-hosts, ``run_optimistic()``), each taken from the checkout's own
+``run()``); ``config3`` its phase 10 (``chip_smoke.CONFIG3``, 10,240
+hosts, ``run()``); ``config4`` its phase 13 (``chip_smoke.CONFIG4``,
+50,176 hosts, ``run_optimistic()``), each taken from the checkout's own
 ``chip_smoke.py``. Each checkout runs in a process of its own, in the
 order PARENT, CHANGE, CHANGE, PARENT, so that a drift of the card or the
 host over the call falls on both alike. Each process builds its
@@ -16,9 +17,9 @@ checkout's kernels, then for each shape runs it once to warm up and N
 times (default 5), and prints one JSON line a run. On the PHOLD shape, a
 checkout whose ops have ``spec_check`` also runs with it replaced by a
 constant NEVER (what a conservative window's check costs), alternating
-which goes first. The last lines give the median ms per window (PHOLD)
-or seconds a run (the others) of each checkout, shape and variant, and
-the card's name and power limit.
+which goes first. The last lines give the median, least and most ms per
+window (PHOLD) or seconds a run (the others) of each checkout, shape and
+variant, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ def flood(name, how):
 
 
 builders = {"phold": phold, "config2": flood("CONFIG2", "run"),
+            "config3": flood("CONFIG3", "run"),
             "config4": flood("CONFIG4", "run_optimistic")}
 for shape in shapes:
     variants = {"kernels": kernels.KERNEL_OPS}
@@ -133,6 +135,8 @@ def main() -> None:
     print(json.dumps({k: {"median_ms_per_window":
                           statistics.median(v["ms_per_window"]),
                           "median_wall_s": statistics.median(v["wall_s"]),
+                          "min_wall_s": min(v["wall_s"]),
+                          "max_wall_s": max(v["wall_s"]),
                           "runs": len(v["wall_s"])}
                       for k, v in medians.items()}))
     print(card)

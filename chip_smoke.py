@@ -23,17 +23,23 @@ power limit:
 1. the card: name, power limit, count, torch and CUDA versions;
 2. build the fifteen CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
    (one process per source, all at once) and print ptxas's register and
-   shared-memory report, and for ``loop_select`` and ``loop_route`` each
-   entry function's registers, shared memory and spill bytes;
+   shared-memory report, and for ``loop_select``, ``loop_route``,
+   ``ring_append`` and ``tcp_reorder`` each entry function's registers,
+   shared memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
    graph), its issue time (the same calls back to back from Python) and
    the plain version's time (CUDA events, warmed) beside the bound; and
-   the window step's parts, timed (``loop_route``, in phases 6, 9 and
-   12, updates its boxes in place: it takes a clone to compare, and each
-   timed call restores the boxes from a pristine copy first, the restores
-   alone timed and subtracted);
+   the window step's parts, timed (in phases 6, 9 and 12 three kernels
+   write into their arguments: ``loop_route`` its boxes, ``ring_append``
+   the ring planes, ``tcp_reorder`` the board, ``rcv_nxt`` and
+   ``bytes_received``; each takes clones to compare, must return them,
+   and must leave every cell its plain version leaves as it was; each
+   timed call of ``loop_route`` and ``tcp_reorder`` restores its inputs
+   from a pristine copy first, the restores alone timed and subtracted,
+   and ``ring_append``'s calls, which write the same cells every time,
+   run back to back);
 4. the full bench-shape run through the kernels, launch counts set to 0
    just before it and read just after: the committed events, overflow,
    bulk-contract count and audit chain must equal the JAX package's
@@ -96,9 +102,10 @@ power limit:
 14. the mixed run through the kernels (rollbacks > 0; equal to
     ``REF_MIXED``) and through the plain versions, state by state; the
     16-host mixed flood, whose rollbacks take the loop path, likewise
-    and against the JAX package's chain; and a rolled-back attempt that
-    leaves every tensor of its base state as it was (same object,
-    version and values).
+    and against the JAX package's chain; and rolled-back attempts, of the
+    mixed run and of the mixed flood at 200 Kbit after appending to the
+    NIC's and the router's ring in place, that leave every tensor of
+    their base state as it was (same object, version and values).
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
 The line has one entry for each kernel on each main path (``path``
@@ -351,13 +358,15 @@ REF_MIXED = {
 }
 
 
-def mixed_flood() -> dict:
+def mixed_flood(bandwidth: str | None = None) -> dict:
     """Config 4's shape at 16 hosts over MIXED_GML, 2 s: the servers and
     six clients on vertex 1, eight clients on vertex 0. A server takes a
     far packet ahead of a near one sent later, so speculation rolls back
     on the loop path (``tests/test_torch_optimistic.py`` pins the JAX
-    package's values)."""
-    cfg = config4(16, MIXED_GML)
+    package's values). ``bandwidth`` replaces every node's 100 Mbit."""
+    gml = MIXED_GML if bandwidth is None else MIXED_GML.replace(
+        '"100 Mbit"', f'"{bandwidth}"')
+    cfg = config4(16, gml)
     cfg["general"]["stop_time"] = 2
     cfg["experimental"]["event_capacity"] = 4096
     hosts = cfg["hosts"]
@@ -370,6 +379,11 @@ def mixed_flood() -> dict:
 
 
 MIXED_FLOOD_CHAIN = 0x297D13156060D542
+# At 100 Mbit nothing of the mixed flood queues, so its ring_append
+# launches append no packet. At this bandwidth the clients' NIC send
+# rings and the servers' router rings queue, and rolled-back attempts
+# append to both: phase 14's snapshot check runs it.
+SNAPSHOT_FLOOD_BW = "200 Kbit"
 
 
 def nic_bound() -> dict:
@@ -452,6 +466,11 @@ REPLACES = {
 }
 
 
+# the entry functions whose name is not their kernel's with "_kernel"
+ENTRIES = {"plan": "loop_select", "apply": "loop_select",
+           "spec_init": "spec_check"}
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -514,19 +533,65 @@ def kernel_times(kern, plain) -> dict:
                 plain_ms=time_ms(plain, 20))
 
 
-def in_place_times(kern, plain, args, kw) -> dict:
-    """``kernel_times`` of ``loop_route``, which updates its boxes in
-    place: each timed call first restores the boxes from a pristine copy
-    (one ``torch._foreach_copy_``), so every call routes the same records
-    into the same boxes; the same number of restores alone, timed the
-    same way, is subtracted from ``ms`` and ``issue_ms``."""
-    pristine = list(args[10])
-    work = clone_boxes(args[10])
-    restore = lambda: torch._foreach_copy_(list(work), pristine)  # noqa: E731
+# what each in-place kernel writes on the card: its argument positions,
+# each mapped to the result field that returns it (Kernel.writes)
+WRITES = {k.name: k.writes for k in kernels.KERNELS if k.writes}
+# a repeated ring_append on the same inputs writes the same cells (its
+# input tail is not written), so its calls are timed without a restore
+IDEMPOTENT = ("ring_append",)
+
+
+def clone_arg(x):
+    if isinstance(x, kernels.Boxes):
+        return clone_boxes(x)
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def work_args(name: str, args) -> tuple:
+    """``args`` with clones of what the kernel ``name`` writes in place."""
+    idx = WRITES.get(name, {})
+    return tuple(clone_arg(a) if i in idx else a for i, a in enumerate(args))
+
+
+def _flat(xs) -> list:
+    """The tensors of ``xs``, each box tuple flattened, each None left
+    out."""
+    out = []
+    for x in xs:
+        out.extend(x if isinstance(x, kernels.Boxes) else
+                   [] if x is None else [x])
+    return out
+
+
+def written(name: str, args) -> list:
+    """The tensors among ``args`` that the kernel ``name`` writes in place
+    (none for the others)."""
+    return _flat(args[i] for i in WRITES.get(name, {}))
+
+
+def returned(name: str, out) -> list:
+    """The tensors of the kernel's result that are the ones it wrote, in
+    the order of ``written``."""
+    return _flat(getattr(out, f) for f in WRITES.get(name, {}).values())
+
+
+def in_place_times(name: str, kern, plain, args, kw) -> dict:
+    """``kernel_times`` of a kernel that writes into its arguments, on
+    clones of those. ``ring_append`` writes the same cells on every call,
+    so its calls run back to back. Every other call first restores what
+    it writes from a pristine copy (one ``torch._foreach_copy_``), so each
+    call updates the same inputs; the same number of restores alone,
+    timed the same way, is subtracted from ``ms`` and ``issue_ms``."""
+    work = work_args(name, args)
+    if name in IDEMPOTENT:
+        return kernel_times(lambda: kern(*work, **kw),
+                            lambda: plain(*args, **kw))
+    pristine, target = written(name, args), written(name, work)
+    restore = lambda: torch._foreach_copy_(target, pristine)  # noqa: E731
 
     def call():
         restore()
-        kern(*args[:10], work, **kw)
+        kern(*work, **kw)
 
     both, alone = kernel_times(call, lambda: plain(*args, **kw)), \
         dict(ms=graph_ms(restore, 200), issue_ms=time_ms(restore, 200))
@@ -904,15 +969,15 @@ def branch_calls(name: str, flags: torch.Tensor) -> dict:
     return dict(zip(BRANCHES[name], map(int, any_bit)))
 
 
-def kept_args(name: str, args) -> tuple:
-    """The arguments a captured call keeps. ``loop_route`` updates the
-    loop's boxes in place on the card, and ``loop_select`` reads them, so
-    those two keep copies of the boxes made before the call."""
-    if name == "loop_select":
-        return (*args[:6], *(x.clone() for x in args[6:12]), *args[12:])
-    if name == "loop_route":
-        return (*args[:10], clone_boxes(args[10]))
-    return args
+def kept(pre, args) -> tuple:
+    """A kept call's arguments: ``pre``, the copies ``work_args`` made
+    before the call of what the kernel itself writes in place, and copies
+    of the rest, made just after the call, before a later in-place kernel
+    writes into a tensor the call read (``loop_select`` reads the boxes
+    that ``loop_route`` writes; ``codel_dequeue`` and ``send_dequeue``
+    the rings that ``ring_append`` writes; ``tcp_out`` the ``rcv_nxt``
+    that ``tcp_reorder`` writes)."""
+    return tuple(clone_arg(p) if p is a else p for p, a in zip(pre, args))
 
 
 def clone_boxes(boxes: kernels.Boxes) -> kernels.Boxes:
@@ -926,11 +991,11 @@ def capture_ops(best: dict, names=LOOP_PATH,
     and counting in ``branches`` the calls that took each TCP branch."""
     def wrap(name, fn):
         def call(*args, **kw):
-            kept = kept_args(name, args)
+            pre = work_args(name, args)
             out = fn(*args, **kw)
             score = activity(name, args, out)
             if name not in best or score > best[name][0]:
-                best[name] = (score, kept, kw)
+                best[name] = (score, kept(pre, args), kw)
             if branches is not None and name in BRANCHES:
                 for b, n in branch_calls(name, out.flags).items():
                     key = f"{name}.{b}"
@@ -1094,8 +1159,8 @@ def synthetic_tcp_reorder(H: int, S: int, W: int, device, seed: int = 17):
 def profile_windows(card: str, sim, label: str, span: int,
                     optimistic: bool = False) -> None:
     """Where a window's time goes: the windows of the next ``span`` ns run
-    twice from one saved state (the state is never written into, so a
-    copy of its containers restores it), first timed alone, then under
+    twice from one saved state (a snapshot: its own copy of the rings and
+    boards the in-place kernels write), first timed alone, then under
     the profiler; the device's busy time is the profiled run's kernels
     and copies, set against both runs' wall. The profiler's summary
     costs time in proportion to the launches traced, so the span stays
@@ -1130,14 +1195,32 @@ def profile_windows(card: str, sim, label: str, span: int,
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    ours = port_kernels(rows)
     print(f"[{card}] {label} [{first}, {until}): micro_steps={steps} "
           f"wall_s={wall:.4f} alone, {wall_prof:.4f} under the profiler; "
           f"device busy (kernels and copies) {busy_s:.4f} s: busy_share="
           f"{busy_s / wall:.4f} of the wall alone, "
           f"{busy_s / wall_prof:.4f} of the profiled wall; top device "
           f"time (us, launches): " + json.dumps(
-              [[k[:60], round(us, 1), n] for us, k, n in rows[:12]]),
+              [[k[:60], round(us, 1), n] for us, k, n in rows[:12]])
+          + "; the port's kernels (us, launches): " + json.dumps(
+              {k: [round(us, 1), n] for k, (us, n) in sorted(
+                  ours.items(), key=lambda kv: -kv[1][0])}),
           flush=True)
+
+
+def port_kernels(rows) -> dict:
+    """{kernel: [device us, launches]} of the port's kernels among a
+    profile's rows ((device us, entry function's name, launches))."""
+    ours: dict = {}
+    for us, key, n in rows:
+        m = re.search(r"(\w+)_kernel\b", key)
+        name = m and ENTRIES.get(m.group(1), m.group(1))
+        if name in REPLACES:
+            t = ours.setdefault(name, [0.0, 0])
+            t[0] += us
+            t[1] += n
+    return ours
 
 
 def compare_calls(card: str, phase: str, calls: dict) -> dict:
@@ -1150,16 +1233,14 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         name = label.split()[0]
         kern = getattr(kernels, name)
         plain = getattr(kernels, f"{name}_plain")
-        if name == "loop_route":  # in place: the kernel takes a clone
-            work = clone_boxes(args[10])
-            got = kern(*args[:10], work, **kw)
-            if any(g is not w for g, w in zip(got.boxes, work)):
-                fail(f"{phase}: loop_route returned other boxes than the "
-                     f"ones it was given")
-        else:
-            got = kern(*args, **kw)
+        work = work_args(name, args)  # an in-place kernel takes clones
+        got = kern(*work, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
+        extra = ""
+        if name in WRITES:
+            cells = check_in_place(phase, label, args, work, got, want)
+            extra = f" in_place cells_written={cells}"
         if name == "loop_route":
             err = max(max_abs_err(got.boxes, want.boxes),
                       max_abs_err(got[1:], want[1:]))
@@ -1170,7 +1251,6 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
                       max_abs_err(got[1:], want[1:]))
         else:
             err = max_abs_err(got, want)
-        extra = ""
         if name == "codel_dequeue":
             n = int(want.dropped.sum())
             extra = f" codel_drops={n}"
@@ -1181,12 +1261,12 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         if name in BRANCHES:
             hosts = {b: int(((want.flags >> bit) & 1).sum())
                      for b, bit in BRANCHES[name].items()}
-            extra = f" hosts_by_branch={json.dumps(hosts)}"
+            extra += f" hosts_by_branch={json.dumps(hosts)}"
             if "synthetic" in label and not all(hosts.values()):
                 fail(f"{phase}: {label} misses a branch: {hosts}")
         b = kernel_bound(name, args, kw, want)
-        times = (in_place_times(kern, plain, args, kw)
-                 if name == "loop_route" else
+        times = (in_place_times(name, kern, plain, args, kw)
+                 if name in WRITES else
                  kernel_times(lambda: kern(*args, **kw),
                               lambda: plain(*args, **kw)))
         results[label] = dict(err=err, bound=b, **times)
@@ -1199,6 +1279,27 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         if err != 0:
             fail(f"{label} disagrees with its plain version on the card")
     return results
+
+
+def check_in_place(phase: str, label: str, args, work, got, want) -> int:
+    """An in-place kernel's call on clones (``work``) of its inputs
+    (``args``): it returned the very tensors it was given, and every cell
+    its plain version leaves as it was is as it was. Returns the cells
+    it wrote."""
+    name = label.split()[0]
+    ins, mine = written(name, args), written(name, work)
+    outs, plains = returned(name, got), returned(name, want)
+    if len(outs) != len(mine) or any(o is not w for o, w in zip(outs, mine)):
+        fail(f"{phase} {label}: the kernel returned other tensors than the "
+             f"ones it was given")
+    cells = 0
+    for before, after, plain in zip(ins, mine, plains):
+        same = plain == before
+        if not torch.equal(after[same], before[same]):
+            fail(f"{phase} {label}: the kernel wrote a cell its plain "
+                 f"version leaves as it was")
+        cells += int((after != before).sum())
+    return cells
 
 
 def phase_loop_kernels(card: str) -> dict:
@@ -1508,10 +1609,10 @@ def synthetic_select(H: int, K: int, B: int, O: int, PP: int, G: int,
 
 def compiler_view(reports: dict) -> dict:
     """{kernel: {entry function: registers, shared memory bytes, spill
-    bytes (stores + loads)}} of the micro-step's two kernels, from nvcc's
-    -Xptxas -v reports."""
+    bytes (stores + loads)}} of the micro-step's two kernels and the two
+    in-place net-stack kernels, from nvcc's -Xptxas -v reports."""
     view = {}
-    for name in ("loop_select", "loop_route"):
+    for name in ("loop_select", "loop_route", "ring_append", "tcp_reorder"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -1696,37 +1797,80 @@ def tensors_of(obj, path="") -> dict:
     return out
 
 
-def check_snapshot(card: str) -> None:
-    """A rolled-back attempt of the mixed run leaves its base state as it
-    was: the windows are stepped as the driver steps them, outside
-    inference mode so every tensor keeps its version counter, until an
-    attempt rolls back."""
-    sim = build_simulation(MIXED)
+def counting_appends(ops, counts: dict) -> kernels.WindowOps:
+    """``ops`` with its ``ring_append`` counting in ``counts`` the packets
+    each call appends: under "nic" (the send ring, no timestamp column)
+    or "router"."""
+    def append(*args, **kw):
+        out = ops.ring_append(*args, **kw)
+        ring = "nic" if args[2] is None else "router"
+        counts[ring] = counts.get(ring, 0) + int(out.ok.sum())
+        return out
+    return ops._replace(ring_append=append)
+
+
+def rolled_back_attempt(sim, counts: dict, need=()) -> tuple:
+    """Step ``sim``'s speculative windows as ``run_optimistic`` does (each
+    attempt from a snapshot of the last commit, a violation retried in a
+    narrower window), outside inference mode so every tensor keeps its
+    version counter, until an attempt that appended to each ring of
+    ``need`` (``counting_appends``'s ``counts``) rolls back. After every
+    rolled-back attempt its base must keep every tensor: the same
+    object, version and value. Returns (windows committed before it, the
+    window start, the violation time, the number of the base's tensors,
+    the attempt's appends)."""
+    cons = sim.runahead
     neg1 = torch.full((sim.num_hosts,), -1, dtype=torch.int64,
                       device=sim.device)
     sim.state = sim.state.with_host(done_t=neg1)
     ws = sim._frontier(sim.stop_time).mn
-    for n in range(1, 200):
-        base = sim.state.snapshot()
-        before = {p: (t, t._version, t.clone())
-                  for p, t in tensors_of(base).items()}
-        st, mn, viol = sim.attempt(base, ws, ws + 8 * sim.runahead)
-        if viol < NEVER:
-            break
+    for n in range(400):
+        base = sim.state  # attempt steps a snapshot of it
+        we = ws + 8 * cons
+        while True:
+            before = {p: (t, t._version, t.clone())
+                      for p, t in tensors_of(base).items()}
+            counts.clear()
+            st, mn, viol = sim.attempt(base, ws, we)
+            if viol >= NEVER or we <= ws + cons:
+                break
+            after = tensors_of(base)
+            if sorted(after) != sorted(before):
+                fail("the rolled-back attempt changed the base's paths")
+            for p, (t, version, value) in before.items():
+                if (after[p] is not t or t._version != version
+                        or not torch.equal(t, value)):
+                    fail(f"the rolled-back attempt changed base {p}")
+            if all(counts.get(r, 0) for r in need):
+                return n, ws, viol, len(before), dict(counts)
+            we = max(viol, ws + cons)
         sim.state = st.with_host(done_t=neg1)
         ws = mn
-    else:
-        fail("phase 14: no attempt rolled back")
-    after = tensors_of(base)
-    if sorted(after) != sorted(before):
-        fail("phase 14: the rolled-back attempt changed the base's paths")
-    for p, (t, version, value) in before.items():
-        if after[p] is not t or t._version != version or not torch.equal(
-                t, value):
-            fail(f"phase 14: the rolled-back attempt changed base {p}")
-    print(f"[{card}] phase 14 snapshot: attempt {n} (window from t={ws}) "
-          f"rolled back at t={viol}; its base's {len(before)} tensors are "
-          f"the same objects, versions and values", flush=True)
+        if ws >= sim.stop_time:
+            break
+    fail(f"no attempt that appended to {list(need)} rolled back")
+
+
+def check_snapshot(card: str) -> None:
+    """Rolled-back attempts leave their base state as it was
+    (``rolled_back_attempt``): one of the mixed run, on the matrix path,
+    and one of the mixed flood at SNAPSHOT_FLOOD_BW, on the loop path,
+    that appended to both the NIC's and the router's ring through the
+    in-place ``ring_append``."""
+    for label, cfg, need in (
+            ("the mixed run", MIXED, ()),
+            (f"the mixed flood at {SNAPSHOT_FLOOD_BW}",
+             mixed_flood(SNAPSHOT_FLOOD_BW), ("nic", "router"))):
+        sim = build_simulation(cfg)
+        counts: dict = {}
+        sim.ops = counting_appends(sim.ops, counts)
+        n, ws, viol, nt, appends = rolled_back_attempt(sim, counts, need)
+        print(f"[{card}] phase 14 snapshot, {label}: with {n} windows "
+              f"committed, the attempt from t={ws} rolled back at "
+              f"t={viol}, having appended {json.dumps(appends)} packets; "
+              f"its base's {nt} tensors are the same objects, versions "
+              f"and values", flush=True)
+        del sim
 
 
 def optimistic_phases(card: str):

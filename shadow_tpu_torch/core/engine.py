@@ -392,6 +392,9 @@ class Simulation:
                 seq_init[s] = q
         host = make_host_state(num_hosts, host_vertex, device=dev)
         host.seq_next = torch.as_tensor(seq_init, device=dev)
+        # a snapshot: the caller's sub-states (a network stack's initial
+        # tensors) stay the caller's, and the live state owns the fields
+        # the in-place kernels write
         self.state = SimState(
             now=0,
             pool=pool,
@@ -401,7 +404,7 @@ class Simulation:
             subs=subs or {},
             obs=obs_mod.ObsBlock.zeros(num_hosts, dev),
             xmit_min=torch.full((), NEVER, dtype=torch.int64, device=dev),
-        )
+        ).snapshot()
         self._win_bump = obs_mod.win_bump_vec(
             obs_mod.WIN_WINDOWS, obs_mod.WIN_MATRIX, device=dev
         )
@@ -491,6 +494,9 @@ class Simulation:
             kind=torch.zeros(H, dtype=torch.int32, device=dev),
             payload=torch.zeros((H, P), dtype=torch.int32, device=dev),
         )
+        # the plain versions: the probe only counts each handler's emit()
+        # calls, so it launches no kernel and adds nothing to the kernels'
+        # launch counts, which read the windows' own work
         probe = Emitter(kernels.PLAIN_OPS)
         e_by_kind = np.zeros(max(kinds) + 1 if kinds else 1, dtype=np.int32)
         pstate = self.state.snapshot()
@@ -725,10 +731,11 @@ class Simulation:
 
     def attempt(self, base: SimState, ws: int, we: int):
         """One speculative window (the JAX package's ``make_attempt``):
-        from a snapshot of ``base``, step [max(mn, ws), we) until no pool
-        event is below ``we`` or a step reports a violation. Returns
-        (state, min_next, violation time or NEVER); ``base`` is left as it
-        was."""
+        from a snapshot of ``base`` (``SimState.snapshot``: its own copy
+        of the rings and boards the in-place kernels write), step
+        [max(mn, ws), we) until no pool event is below ``we`` or a step
+        reports a violation. Returns (state, min_next, violation time or
+        NEVER); ``base`` is left as it was."""
         self.state = base.snapshot()
         f = self._frontier(self.stop_time, we)
         mn, viol = f.mn, NEVER
@@ -786,7 +793,7 @@ class Simulation:
         while min_next < stop:
             ws = min_next
             we = min(ws + factor * cons, stop)
-            base = self.state.snapshot()  # the rollback point
+            base = self.state  # the rollback point: attempt copies it
             rb0 = rollbacks
             while True:
                 st, mn, viol = self.attempt(base, ws, we)

@@ -13,8 +13,11 @@ JAX's uint32 fields (the per-host draw counter and the PRNG keys) are held
 in int64 with values in [0, 2**32); every update masks with 0xFFFFFFFF so
 they wrap exactly as the uint32 originals do.
 
-The engine replaces fields with new tensors window by window; it never
-writes into a tensor that a caller may still hold.
+The engine replaces fields with new tensors window by window, with one
+exception: on the card, ``ring_append`` and ``tcp_reorder`` write in place
+the fields that a sub-state class lists in its ``IN_PLACE`` (the NIC's and
+the router's ring planes, the TCP board fields). ``SimState.snapshot()``
+clones those fields, so stepping a snapshot leaves the original as it was.
 """
 
 from __future__ import annotations
@@ -164,7 +167,8 @@ class SimState:
 
     # The loop path's handlers update the state functionally, as the JAX
     # package's do: each helper returns a new SimState and leaves this one
-    # (and every tensor it holds) as it was.
+    # as it was. The in-place kernels are the exception: they write the
+    # IN_PLACE fields of the sub-states they are handed (see snapshot).
 
     def replace(self, **fields) -> "SimState":
         return replace(self, **fields)
@@ -185,11 +189,14 @@ class SimState:
 
     def snapshot(self) -> "SimState":
         """A copy of every container level (pool, host, counters, obs,
-        subs and each sub-state, nested ones too) sharing this state's
-        tensors. The matrix step and the app handlers assign fields on the
-        containers they are given; done on the copy, that leaves this
-        state as it was. The tensors are shared because nothing writes
-        into one: the optimistic driver rolls back to a snapshot."""
+        subs and each sub-state, nested ones too) that owns the fields
+        the in-place kernels write: each field a sub-state class lists in
+        its ``IN_PLACE`` is cloned, every other tensor is shared. The
+        matrix step and the app handlers assign fields on the containers
+        they are given, and on the card ``ring_append`` and
+        ``tcp_reorder`` write the ``IN_PLACE`` fields; done on the copy,
+        neither touches this state. The optimistic driver steps each
+        attempt on a snapshot of its rollback point."""
         return _snap(self)
 
 
@@ -197,7 +204,9 @@ def _snap(v):
     if isinstance(v, dict):
         return {k: _snap(x) for k, x in v.items()}
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
-        return replace(v, **{k: _snap(x) for k, x in vars(v).items()})
+        owned = getattr(v, "IN_PLACE", ())
+        return replace(v, **{k: x.clone() if k in owned else _snap(x)
+                             for k, x in vars(v).items()})
     return v
 
 

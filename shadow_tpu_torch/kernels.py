@@ -26,7 +26,8 @@ The micro-step loop path and the network stack run the other four:
 * ``codel_dequeue`` (K6): the CoDel router's dequeue,
   ``shadow_tpu/net/codel.py:dequeue``.
 * ``ring_append`` (K7): a masked append to a per-host ring, for the
-  router's ``codel.enqueue`` and the NIC's ``nic.enqueue_send``.
+  router's ``codel.enqueue`` and the NIC's ``nic.enqueue_send``; on the
+  card it writes the appended slots into the ring planes in place.
 
 The TCP stack (``net/tcp.py``) runs four more, each on the one socket
 each host's segment or self-event names, returning its decisions so
@@ -36,7 +37,8 @@ that the emissions stay in the JAX package's order:
 * ``tcp_ack`` (K9): the ACK block of ``Tcp.on_segment`` — RTT, Reno and
   NewReno, the SACK scoreboard and the retransmission choice.
 * ``tcp_reorder`` (K10): the data-receive block of ``Tcp.on_segment``
-  (the reorder board) and the SACK word of its ACK reply.
+  (the reorder board) and the SACK word of its ACK reply; on the card it
+  updates the board, ``rcv_nxt`` and ``bytes_received`` in place.
 * ``tcp_out`` (K11): the output pump ``Tcp.on_out``.
 
 The optimistic driver and the network stack's NIC and link run four more:
@@ -53,8 +55,12 @@ The optimistic driver and the network stack's NIC and link run four more:
 
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no fallback from one to the
-other. A wrapper adds one to its kernel's ``launches`` where it launches
-the kernel and nowhere else.
+other. Three kernels write into tensors they are given: ``loop_route``
+the micro-step's boxes, ``ring_append`` and ``tcp_reorder`` the state
+fields their sub-state classes list in ``IN_PLACE`` (``SimState.snapshot()``
+clones those); each ``Kernel``'s ``writes`` says which arguments. The
+plain versions work out of place. A wrapper adds one to its kernel's
+``launches`` where it launches the kernel and nowhere else.
 
 The kernels are built with nvcc for ``sm_90a`` at first use, into
 ``_build/`` beside this file, and loaded with ctypes; every pointer and
@@ -73,7 +79,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -101,11 +107,14 @@ _L = ctypes.c_longlong
 @dataclass
 class Kernel:
     """One CUDA kernel: its source, C entry and argument types, and the
-    count of its launches."""
+    count of its launches. ``writes`` maps the positions of the wrapper's
+    arguments that the kernel writes in place on the card to the fields
+    of its result that return them."""
 
     name: str
     argtypes: tuple
     launches: int = 0
+    writes: dict = field(default_factory=dict)
 
     @property
     def source(self) -> str:
@@ -139,6 +148,7 @@ LOOP_ROUTE = Kernel(
      _P, _P, _P, _P, _P, _P, _P,  # outbox, updated in place
      _P, _P,  # seq_next and stats out
      _I, _I, _I, _I, _I, _L, _P),
+    writes={10: "boxes"},
 )
 CODEL_DEQUEUE = Kernel(
     "codel_dequeue",
@@ -148,9 +158,11 @@ CODEL_DEQUEUE = Kernel(
 )
 RING_APPEND = Kernel(
     "ring_append",
-    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
-     _P, _P, _P, _P, _P, _P,  # outputs
+    (_P, _P, _P,  # ring planes, updated in place
+     _P, _P, _P, _P, _P, _P, _P,  # inputs
+     _P, _P, _P,  # outputs
      _I, _I, _I, _P),
+    writes={0: "payload", 1: "col", 2: "ts"},
 )
 TCP_DEMUX = Kernel(
     "tcp_demux",
@@ -162,9 +174,11 @@ TCP_DEMUX = Kernel(
 TCP_ACK = Kernel("tcp_ack", (_P, _P, _I, _I, _I, _P))
 TCP_REORDER = Kernel(
     "tcp_reorder",
-    (_P, _P, _P, _P, _P, _P, _P, _P,  # inputs
-     _P, _P, _P, _P, _P, _P,  # outputs
+    (_P, _P, _P, _P, _P,  # inputs
+     _P, _P, _P,  # rcv_nxt, bytes_received, ooo_map, updated in place
+     _P, _P, _P,  # outputs
      _I, _I, _I, _I, _P),
+    writes={5: "rcv_nxt", 6: "ooo_map", 7: "bytes_received"},
 )
 TCP_OUT = Kernel("tcp_out", (_P, _P, _I, _I, _I, _P))
 SPEC_CHECK = Kernel("spec_check", (_P, _P, _P, _P, _L, _I, _P, _P))
@@ -1074,7 +1088,9 @@ def codel_dequeue(q_payload, q_src, q_enq_ts, q_head, q_tail, drop_mode,
 
 class AppendOut(NamedTuple):
     """The ring after a masked append; ``ts`` and ``total_size`` are None
-    where the ring has no timestamp column / byte tally."""
+    where the ring has no timestamp column / byte tally. On the card
+    ``payload``, ``col`` and ``ts`` are the ring planes the kernel was
+    given, written in place; the plain version returns new tensors."""
 
     payload: torch.Tensor  # [H, Q, P] int32
     col: torch.Tensor  # [H, Q] int32
@@ -1110,7 +1126,14 @@ def ring_append(q_payload, q_col, q_ts, q_head, q_tail, mask, payload, col,
                 ts, total_size) -> AppendOut:
     """Masked per-host ring append (see ``ring_append_plain``). ``q_ts`` /
     ``ts`` and ``total_size`` may be None together for a ring without
-    them."""
+    them.
+
+    On the card the kernel writes each appended slot into ``q_payload``,
+    ``q_col`` and ``q_ts`` in place and returns those very tensors; the
+    rings are ``IN_PLACE`` fields of the NIC's and the router's states,
+    which ``SimState.snapshot()`` clones. The tail, byte tally and ``ok``
+    are new tensors. To compare the kernel with its plain version, hand
+    the kernel clones of the planes."""
     opt = tuple(x for x in (q_ts, ts, total_size) if x is not None)
     args = (q_payload, q_col, q_head, q_tail, mask, payload, col)
     if not _on_card(*args, *opt):
@@ -1135,14 +1158,12 @@ def ring_append(q_payload, q_col, q_ts, q_head, q_tail, mask, payload, col,
     )
     e = lambda dt, *sh: torch.empty(sh, dtype=dt, device=dev)  # noqa: E731
     out = AppendOut(
-        payload=e(torch.int32, H, Q, P), col=e(torch.int32, H, Q),
-        ts=None if q_ts is None else e(torch.int64, H, Q),
-        tail=e(torch.int32, H),
+        payload=q_payload, col=q_col, ts=q_ts, tail=e(torch.int32, H),
         total_size=None if total_size is None else e(torch.int64, H),
         ok=e(torch.bool, H),
     )
     _launch(RING_APPEND, *ins,
-            *(0 if t is None else t.data_ptr() for t in out), H, Q, P,
+            *(0 if t is None else t.data_ptr() for t in out[3:]), H, Q, P,
             _stream(q_payload))
     return out
 
@@ -1532,7 +1553,10 @@ RO_IN_ORDER, RO_OOO, RO_DROP, RO_ABSORB = range(4)
 class ReorderOut(NamedTuple):
     """The data-receive block's result: the receive fields after it, and
     per host its decisions (``flags``, bits ``RO_*``), the in-order bytes
-    delivered up and the SACK word of the ACK reply."""
+    delivered up and the SACK word of the ACK reply. On the card
+    ``rcv_nxt``, ``ooo_map`` and ``bytes_received`` are the tensors the
+    kernel was given, updated in place; the plain version returns new
+    tensors."""
 
     rcv_nxt: torch.Tensor  # [H, S] int32
     ooo_map: torch.Tensor  # [H, S, W] bool
@@ -1589,12 +1613,23 @@ def tcp_reorder_plain(mask, slot, seg_seq, seg_len, state, rcv_nxt, ooo_map,
 def tcp_reorder(mask, slot, seg_seq, seg_len, state, rcv_nxt, ooo_map,
                 bytes_received, *, mss: int) -> ReorderOut:
     """The data-receive block of one incoming segment per host (see
-    ``tcp_reorder_plain``)."""
+    ``tcp_reorder_plain``).
+
+    On the card the kernel updates ``rcv_nxt``, ``ooo_map`` and
+    ``bytes_received`` in place, at each masked host's slot and nowhere
+    else, and returns those very tensors; they are the state's
+    ``TcpState.IN_PLACE`` fields (``SimState.snapshot()`` clones them).
+    ``flags``, ``adv`` and ``sack`` are new tensors. The kernel holds a
+    board row in 64 bits, so W <= 64. To compare it with its plain version, hand the
+    kernel clones of the three fields."""
     args = (mask, slot, seg_seq, seg_len, state, rcv_nxt, ooo_map,
             bytes_received)
     if not _on_card(*args):
         return tcp_reorder_plain(*args, mss=mss)
     H, S, W = ooo_map.shape
+    if W > 64:
+        raise ValueError(f"tcp_reorder: a board row of W={W} chunks; the "
+                         f"kernel takes W <= 64")
     dev = mask.device
     ins = (
         _check(mask, torch.bool, (H,), "mask"),
@@ -1607,12 +1642,12 @@ def tcp_reorder(mask, slot, seg_seq, seg_len, state, rcv_nxt, ooo_map,
     )
     e = lambda dt, *sh: torch.empty(sh, dtype=dt, device=dev)  # noqa: E731
     out = ReorderOut(
-        rcv_nxt=e(torch.int32, H, S), ooo_map=e(torch.bool, H, S, W),
-        bytes_received=e(torch.int64, H, S), flags=e(torch.int32, H),
-        adv=e(torch.int32, H), sack=e(torch.int32, H),
+        rcv_nxt=rcv_nxt, ooo_map=ooo_map, bytes_received=bytes_received,
+        flags=e(torch.int32, H), adv=e(torch.int32, H),
+        sack=e(torch.int32, H),
     )
-    _launch(TCP_REORDER, *ins, *(t.data_ptr() for t in out), H, S, W, mss,
-            _stream(mask))
+    _launch(TCP_REORDER, *ins, *(t.data_ptr() for t in out[3:]), H, S, W,
+            mss, _stream(mask))
     return out
 
 

@@ -48,6 +48,10 @@ class RouterState:
     drop_trail: torch.Tensor  # [H] int32
     drop_time: torch.Tensor  # [H] int64
 
+    # the ring's planes, which ring_append writes in place on the card
+    # (SimState.snapshot clones them)
+    IN_PLACE = ("q_payload", "q_src", "q_enq_ts")
+
     def replace(self, **fields) -> "RouterState":
         return state_mod.replace(self, **fields)
 

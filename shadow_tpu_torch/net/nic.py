@@ -48,6 +48,10 @@ class NicState:
     last_socket: torch.Tensor  # [H] int32 (-1 = none yet)
     q_taken: torch.Tensor  # [H, NQ] bool
     sendq_dropped: torch.Tensor  # [] int64
+
+    # the send ring's planes, which ring_append writes in place on the
+    # card (SimState.snapshot clones them)
+    IN_PLACE = ("q_payload", "q_dst")
     # per-host byte/packet tracker
     tx_packets: torch.Tensor  # [H] int64
     tx_bytes: torch.Tensor  # [H] int64

@@ -122,6 +122,10 @@ class TcpState:
     rtx_sack: torch.Tensor
     rtx_walk: torch.Tensor
 
+    # the board fields, which tcp_reorder writes in place on the card
+    # (SimState.snapshot clones them)
+    IN_PLACE = ("ooo_map", "rcv_nxt", "bytes_received")
+
     def replace(self, **fields) -> "TcpState":
         return state_mod.replace(self, **fields)
 

@@ -257,6 +257,7 @@ def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
         stack.on_receive(app.on_receive)
     handlers = dict(stack.handlers())
     handlers.update(app.handlers())
+    # the engine snapshots these: the live state owns its rings and boards
     subs = stack.init_subs()
     subs[app.SUB] = app.init_sub(dev)
     bulk_kinds = stack.bulk_kinds()

@@ -10,15 +10,19 @@ path's kernels take seeded random states (``random_*`` below: NEVER
 lanes, full rings and boxes, key ties, token debt, drop mode;
 ``chip_smoke.synthetic_select`` at widths over many blocks, with pool
 budgets that bind at a block boundary) and whole runs of a congested UDP
-flood; ``loop_route`` updates its boxes in place, so it is handed a
-clone; the TCP kernels take seeded lossy tables
+flood; ``loop_route``, ``ring_append`` and ``tcp_reorder`` write into
+the tensors they are given, so each is handed clones after its plain
+version has run, and must return the clones with every cell its plain
+version leaves as it was unchanged; the TCP kernels take seeded lossy
+tables
 (``chip_smoke.synthetic_tcp_*`` and ``random_tcp_*``: every branch of
 the ACK and reorder blocks, sequence numbers across the wrap, slots
 outside [0, S) on masked-off hosts) and a whole lossy TCP run; the
 optimistic driver's four kernels take the synthetic tables of
 ``chip_smoke.synthetic_*`` (violations and filler destinations, idle
 gaps and NEVER lanes, wrapped ring heads, unreachable pairs and control
-packets) and whole optimistic runs that roll back on both paths.
+packets) and whole optimistic runs that roll back on both paths, one of
+them after appending to both rings.
 
 Marked ``cuda``: the card decides inside the fixture, and the tests skip
 where there is none. This file imports neither jax nor the JAX package,
@@ -200,6 +204,11 @@ def test_kernels_refuse_bad_arguments(card):
     t = torch.full((4, 3), NEVER, dtype=torch.int64, device=card)
     with pytest.raises(ValueError):
         kernels.audit_commit(t, t, t, t, t, t, t, t)
+    from chip_smoke import synthetic_tcp_reorder
+
+    args, kw = synthetic_tcp_reorder(64, 2, 65, card)
+    with pytest.raises(ValueError):  # a board row wider than 64 chunks
+        kernels.tcp_reorder(*args, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -502,15 +511,41 @@ def test_codel_dequeue_matches_plain(card, seed):
         _eq(kernels.codel_dequeue(*args, aqm=aqm), want)
 
 
+def _in_place(got_planes, work, before, want_planes):
+    """An in-place kernel's result: the planes it returned are the clones
+    it was given, and every cell the plain version left as it was is as
+    it was."""
+    assert len(got_planes) == len(work)
+    for g, w, b, p in zip(got_planes, work, before, want_planes):
+        assert g is w
+        kept = p == b
+        assert torch.equal(g[kept], b[kept])
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_ring_append_matches_plain(card, seed):
+    """The plain version runs first, on the inputs; the kernel then
+    writes into clones of the ring planes, in place."""
     rs = np.random.default_rng(300 + seed)
-    for with_ts in (True, False):
-        a = to_torch(random_ring(rs, with_ts=with_ts), card)
-        got = kernels.ring_append(*a.values())
-        want = kernels.ring_append_plain(*a.values())
+    for with_ts, P in ((True, 12), (False, 12), (True, 13)):
+        a = list(to_torch(random_ring(rs, P=P, with_ts=with_ts),
+                          card).values())
+        want = kernels.ring_append_plain(*a)
+        work = [None if x is None else x.clone() for x in a[:3]]
+        n = kernels.RING_APPEND.launches
+        got = kernels.ring_append(*work, *a[3:])
+        assert kernels.RING_APPEND.launches == n + 1
         assert (got.ts is None) == (want.ts is None) == (not with_ts)
+        assert int(want.ok.sum()) > 0
         _eq([x for x in got if x is not None],
+            [x for x in want if x is not None])
+        planes = [x for x in a[:3] if x is not None]
+        _in_place([x for x in got[:3] if x is not None],
+                  [x for x in work if x is not None], planes,
+                  [x for x in want[:3] if x is not None])
+        # the input tail is not written: a second call writes the same
+        # cells
+        _eq([x for x in kernels.ring_append(*work, *a[3:]) if x is not None],
             [x for x in want if x is not None])
 
 
@@ -656,11 +691,30 @@ def test_tcp_reorder_matches_plain(card, seed):
 
     for W in (64, 20):
         args, kw = synthetic_tcp_reorder(2048, 8, W, card, seed=600 + seed)
-        got = kernels.tcp_reorder(*args, **kw)
         want = kernels.tcp_reorder_plain(*args, **kw)
+        work = [x.clone() for x in args[5:]]
+        got = kernels.tcp_reorder(*args[:5], *work, **kw)
         for b in BRANCHES["tcp_reorder"].values():
             assert int(((want.flags >> b) & 1).sum()) > 0, b
         _eq(got, want)
+        # rcv_nxt, ooo_map and bytes_received, in that order
+        _in_place(got[:3], [work[0], work[1], work[2]],
+                  [args[5], args[6], args[7]], want[:3])
+
+
+def test_tcp_reorder_unaligned_board_matches_plain(card):
+    """A board whose rows are not 16-byte aligned takes the byte path."""
+    from chip_smoke import synthetic_tcp_reorder
+
+    args, kw = synthetic_tcp_reorder(1024, 8, 64, card, seed=650)
+    want = kernels.tcp_reorder_plain(*args, **kw)
+    buf = torch.zeros(args[6].numel() + 1, dtype=torch.bool, device=card)
+    board = buf[1:].view(args[6].shape)
+    board.copy_(args[6])
+    got = kernels.tcp_reorder(*args[:5], args[5].clone(), board,
+                              args[7].clone(), **kw)
+    assert got.ooo_map is board
+    _eq(got, want)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -827,3 +881,21 @@ def test_optimistic_run_through_kernels_matches_plain_run(card, name):
     na, nb = interop.state_to_numpy(a.state), interop.state_to_numpy(b.state)
     for path in na:
         assert np.array_equal(na[path], nb[path]), path
+
+
+def test_rolled_back_attempt_with_appends_keeps_its_base(card):
+    """An optimistic attempt of the mixed flood at 200 Kbit appends to
+    the NIC's and the router's ring through the in-place kernel and rolls
+    back: its base keeps every tensor, object, version and value (the
+    attempt steps a snapshot of it, which owns the rings)."""
+    import chip_smoke
+
+    sim = build_simulation(chip_smoke.mixed_flood(
+        chip_smoke.SNAPSHOT_FLOOD_BW), device=card)
+    counts = {}
+    sim.ops = chip_smoke.counting_appends(kernels.KERNEL_OPS, counts)
+    n = kernels.RING_APPEND.launches
+    _, _, viol, _, appends = chip_smoke.rolled_back_attempt(
+        sim, counts, ("nic", "router"))
+    assert viol < NEVER and appends["nic"] > 0 and appends["router"] > 0
+    assert kernels.RING_APPEND.launches > n
