@@ -24,22 +24,22 @@ power limit:
 2. build the fifteen CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
    (one process per source, all at once) and print ptxas's register and
    shared-memory report, and for ``loop_select``, ``loop_route``,
-   ``ring_append`` and ``tcp_reorder`` each entry function's registers,
-   shared memory and spill bytes;
+   ``ring_append``, ``tcp_ack``, ``tcp_reorder`` and ``tcp_out`` each
+   entry function's registers, shared memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
    graph), its issue time (the same calls back to back from Python) and
    the plain version's time (CUDA events, warmed) beside the bound; and
-   the window step's parts, timed (in phases 6, 9 and 12 three kernels
+   the window step's parts, timed (in phases 6, 9 and 12 five kernels
    write into their arguments: ``loop_route`` its boxes, ``ring_append``
-   the ring planes, ``tcp_reorder`` the board, ``rcv_nxt`` and
-   ``bytes_received``; each takes clones to compare, must return them,
-   and must leave every cell its plain version leaves as it was; each
-   timed call of ``loop_route`` and ``tcp_reorder`` restores its inputs
-   from a pristine copy first, the restores alone timed and subtracted,
-   and ``ring_append``'s calls, which write the same cells every time,
-   run back to back);
+   the ring planes, ``tcp_ack``, ``tcp_reorder`` and ``tcp_out`` fields
+   of the TCP table; each takes clones to compare, must return them, and
+   must leave every cell its plain version leaves as it was; each timed
+   call of ``loop_route`` and the TCP kernels restores its inputs from a
+   pristine copy first, the restores alone timed and subtracted (the
+   median of eleven rounds), and ``ring_append``'s calls, which write the
+   same cells every time, run back to back);
 4. the full bench-shape run through the kernels, launch counts set to 0
    just before it and read just after: the committed events, overflow,
    bulk-contract count and audit chain must equal the JAX package's
@@ -84,7 +84,8 @@ power limit:
     busiest call in an optimistic window of config 4, those of the mixed
     run likewise, and every kernel of the NIC-bound transfer (with K14
     ``send_dequeue``) on its busiest call to 1.06 s, its launches counted
-    from t = 0; plus full-width synthetic tables for the branches the
+    from t = 0, and a few of its windows alone and under the profiler;
+    plus full-width synthetic tables for the branches the
     runs miss (K12 with violations and filler destinations, K13 with
     NEVER lanes and long idle gaps, K14 with wrapped rings, K15 with
     loss 0.5, unreachable pairs and control packets), and ``loop_select``
@@ -103,9 +104,11 @@ power limit:
     ``REF_MIXED``) and through the plain versions, state by state; the
     16-host mixed flood, whose rollbacks take the loop path, likewise
     and against the JAX package's chain; and rolled-back attempts, of the
-    mixed run and of the mixed flood at 200 Kbit after appending to the
-    NIC's and the router's ring in place, that leave every tensor of
-    their base state as it was (same object, version and values).
+    mixed run, of the mixed flood at 200 Kbit after appending to the
+    NIC's and the router's ring in place, and of config 3's shape at 32
+    hosts after ``tcp_ack`` and ``tcp_out`` ran on masked hosts, that
+    leave every tensor of their base state as it was (same object,
+    version and values).
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
 The line has one entry for each kernel on each main path (``path``
@@ -384,6 +387,8 @@ MIXED_FLOOD_CHAIN = 0x297D13156060D542
 # rings and the servers' router rings queue, and rolled-back attempts
 # append to both: phase 14's snapshot check runs it.
 SNAPSHOT_FLOOD_BW = "200 Kbit"
+# phase 14's TCP snapshot check runs config 3's shape at this width
+SNAPSHOT_TCP_HOSTS = 32
 
 
 def nic_bound() -> dict:
@@ -539,6 +544,9 @@ WRITES = {k.name: k.writes for k in kernels.KERNELS if k.writes}
 # a repeated ring_append on the same inputs writes the same cells (its
 # input tail is not written), so its calls are timed without a restore
 IDEMPOTENT = ("ring_append",)
+# rounds of restore-alone and restore-and-call graphs an in-place call's
+# device time is the median difference of
+IN_PLACE_ROUNDS = 11
 
 
 def clone_arg(x):
@@ -572,7 +580,8 @@ def written(name: str, args) -> list:
 def returned(name: str, out) -> list:
     """The tensors of the kernel's result that are the ones it wrote, in
     the order of ``written``."""
-    return _flat(getattr(out, f) for f in WRITES.get(name, {}).values())
+    return _flat(kernels.written_result(out, w)
+                 for w in WRITES.get(name, {}).values())
 
 
 def in_place_times(name: str, kern, plain, args, kw) -> dict:
@@ -581,7 +590,10 @@ def in_place_times(name: str, kern, plain, args, kw) -> dict:
     so its calls run back to back. Every other call first restores what
     it writes from a pristine copy (one ``torch._foreach_copy_``), so each
     call updates the same inputs; the same number of restores alone,
-    timed the same way, is subtracted from ``ms`` and ``issue_ms``."""
+    timed the same way, is subtracted from ``ms`` and ``issue_ms``. A
+    restore takes up to several times the kernel's own time and varies
+    from graph to graph, so ``ms`` is the median of IN_PLACE_ROUNDS
+    differences, the two graphs timed in turn."""
     work = work_args(name, args)
     if name in IDEMPOTENT:
         return kernel_times(lambda: kern(*work, **kw),
@@ -593,11 +605,14 @@ def in_place_times(name: str, kern, plain, args, kw) -> dict:
         restore()
         kern(*work, **kw)
 
-    both, alone = kernel_times(call, lambda: plain(*args, **kw)), \
-        dict(ms=graph_ms(restore, 200), issue_ms=time_ms(restore, 200))
-    return dict(ms=both["ms"] - alone["ms"],
-                issue_ms=both["issue_ms"] - alone["issue_ms"],
-                plain_ms=both["plain_ms"], restore_ms=alone["ms"])
+    alone, diffs = [], []
+    for _ in range(IN_PLACE_ROUNDS):
+        alone.append(graph_ms(restore, 200))
+        diffs.append(graph_ms(call, 200) - alone[-1])
+    return dict(ms=float(np.median(diffs)),
+                issue_ms=time_ms(call, 200) - time_ms(restore, 200),
+                plain_ms=time_ms(lambda: plain(*args, **kw), 20),
+                restore_ms=float(np.median(alone)), rounds_ms=diffs)
 
 
 def nbytes(*ts) -> int:
@@ -975,8 +990,9 @@ def kept(pre, args) -> tuple:
     of the rest, made just after the call, before a later in-place kernel
     writes into a tensor the call read (``loop_select`` reads the boxes
     that ``loop_route`` writes; ``codel_dequeue`` and ``send_dequeue``
-    the rings that ``ring_append`` writes; ``tcp_out`` the ``rcv_nxt``
-    that ``tcp_reorder`` writes)."""
+    the rings that ``ring_append`` writes; ``tcp_demux``, ``tcp_ack``,
+    ``tcp_reorder`` and ``tcp_out`` fields of the TCP table that the
+    others write)."""
     return tuple(clone_arg(p) if p is a else p for p, a in zip(pre, args))
 
 
@@ -1274,7 +1290,8 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         print(f"[{card}] {phase} {label}: max_abs_err={err}{extra} "
               f"kernel_ms={r['ms']:.6f} issue_ms={r['issue_ms']:.6f} "
               f"plain_ms={r['plain_ms']:.6f} bound_ms={b[0]:.6f} ({b[1]})"
-              + (f" restore_ms={r['restore_ms']:.6f} (subtracted)"
+              + (f" restore_ms={r['restore_ms']:.6f} (subtracted; rounds "
+                 + " ".join(f"{x:.6f}" for x in r["rounds_ms"]) + ")"
                  if "restore_ms" in r else ""), flush=True)
         if err != 0:
             fail(f"{label} disagrees with its plain version on the card")
@@ -1609,10 +1626,11 @@ def synthetic_select(H: int, K: int, B: int, O: int, PP: int, G: int,
 
 def compiler_view(reports: dict) -> dict:
     """{kernel: {entry function: registers, shared memory bytes, spill
-    bytes (stores + loads)}} of the micro-step's two kernels and the two
+    bytes (stores + loads)}} of the micro-step's two kernels and the
     in-place net-stack kernels, from nvcc's -Xptxas -v reports."""
     view = {}
-    for name in ("loop_select", "loop_route", "ring_append", "tcp_reorder"):
+    for name in ("loop_select", "loop_route", "ring_append", "tcp_ack",
+                 "tcp_reorder", "tcp_out"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -1714,6 +1732,9 @@ def phase_optimistic_kernels(card: str):
     missing = [k for k in NIC_PATH if launches[k] == 0]
     if missing:
         fail(f"phase 12: the NIC-bound transfer never launched {missing}")
+    sim.ops = kernels.KERNEL_OPS
+    profile_windows(card, sim, "phase 12 the NIC-bound transfer windows",
+                    PHASE9_PROFILE_NS)
     del sim
     resn = compare_calls(card, "phase 12 NIC-bound", bestn)
     print(f"[{card}] phase 12 wall_s={time.perf_counter() - t0:.3f}",
@@ -1809,12 +1830,28 @@ def counting_appends(ops, counts: dict) -> kernels.WindowOps:
     return ops._replace(ring_append=append)
 
 
+def counting_tcp(ops, counts: dict) -> kernels.WindowOps:
+    """``ops`` with its ``tcp_ack`` and ``tcp_out`` counting in ``counts``,
+    under their names, the masked hosts of each call (those whose slot
+    the call writes)."""
+    def counted(name):
+        fn = getattr(ops, name)
+
+        def call(*args, **kw):
+            counts[name] = counts.get(name, 0) + int(args[0].sum())
+            return fn(*args, **kw)
+        return call
+    return ops._replace(tcp_ack=counted("tcp_ack"),
+                        tcp_out=counted("tcp_out"))
+
+
 def rolled_back_attempt(sim, counts: dict, need=()) -> tuple:
     """Step ``sim``'s speculative windows as ``run_optimistic`` does (each
     attempt from a snapshot of the last commit, a violation retried in a
     narrower window), outside inference mode so every tensor keeps its
-    version counter, until an attempt that appended to each ring of
-    ``need`` (``counting_appends``'s ``counts``) rolls back. After every
+    version counter, until an attempt with a count above 0 under each key
+    of ``need`` in ``counts`` (``counting_appends``' rings,
+    ``counting_tcp``'s kernels) rolls back. After every
     rolled-back attempt its base must keep every tensor: the same
     object, version and value. Returns (windows committed before it, the
     window start, the violation time, the number of the base's tensors,
@@ -1848,28 +1885,32 @@ def rolled_back_attempt(sim, counts: dict, need=()) -> tuple:
         ws = mn
         if ws >= sim.stop_time:
             break
-    fail(f"no attempt that appended to {list(need)} rolled back")
+    fail(f"no attempt that counted {list(need)} rolled back")
 
 
 def check_snapshot(card: str) -> None:
     """Rolled-back attempts leave their base state as it was
-    (``rolled_back_attempt``): one of the mixed run, on the matrix path,
-    and one of the mixed flood at SNAPSHOT_FLOOD_BW, on the loop path,
-    that appended to both the NIC's and the router's ring through the
-    in-place ``ring_append``."""
+    (``rolled_back_attempt``): one of the mixed run, on the matrix path;
+    one of the mixed flood at SNAPSHOT_FLOOD_BW, on the loop path, that
+    appended to both the NIC's and the router's ring through the in-place
+    ``ring_append``; and one of config 3's shape at SNAPSHOT_TCP_HOSTS
+    hosts that ran the in-place ``tcp_ack`` and ``tcp_out`` on masked
+    hosts."""
     for label, cfg, need in (
             ("the mixed run", MIXED, ()),
             (f"the mixed flood at {SNAPSHOT_FLOOD_BW}",
-             mixed_flood(SNAPSHOT_FLOOD_BW), ("nic", "router"))):
+             mixed_flood(SNAPSHOT_FLOOD_BW), ("nic", "router")),
+            (f"config 3 at {SNAPSHOT_TCP_HOSTS} hosts",
+             config3(SNAPSHOT_TCP_HOSTS), ("tcp_ack", "tcp_out"))):
         sim = build_simulation(cfg)
         counts: dict = {}
-        sim.ops = counting_appends(sim.ops, counts)
-        n, ws, viol, nt, appends = rolled_back_attempt(sim, counts, need)
+        sim.ops = counting_tcp(counting_appends(sim.ops, counts), counts)
+        n, ws, viol, nt, seen = rolled_back_attempt(sim, counts, need)
         print(f"[{card}] phase 14 snapshot, {label}: with {n} windows "
               f"committed, the attempt from t={ws} rolled back at "
-              f"t={viol}, having appended {json.dumps(appends)} packets; "
-              f"its base's {nt} tensors are the same objects, versions "
-              f"and values", flush=True)
+              f"t={viol}, having counted {json.dumps(seen)} (packets "
+              f"appended, hosts handled); its base's {nt} tensors are the "
+              f"same objects, versions and values", flush=True)
         del sim
 
 

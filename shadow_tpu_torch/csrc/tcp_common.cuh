@@ -2,7 +2,7 @@
 // tcp_out): the JAX package's state numbering, int32 sequence arithmetic
 // that wraps as two's complement (done in uint32: signed overflow is
 // undefined in C++), floor division (C's / truncates toward zero, JAX's //
-// floors), and the row copy of an out-of-place [H, S] update.
+// floors), and the launch shape.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,12 +39,8 @@ __device__ __forceinline__ int clip_slot(int s, int S) {
   return s < 0 ? 0 : (s > S - 1 ? S - 1 : s);
 }
 
-template <typename T>
-__device__ __forceinline__ void copy_row(T* out, const T* in, long long r,
-                                         int S) {
-  for (int s = 0; s < S; ++s) out[r + s] = in[r + s];
+inline int blocks(int H, int threads = kThreads) {
+  return (H + threads - 1) / threads;
 }
-
-inline int blocks(int H) { return (H + kThreads - 1) / kThreads; }
 
 }  // namespace tcp

@@ -35,11 +35,13 @@ that the emissions stay in the JAX package's order:
 
 * ``tcp_demux`` (K8): the socket match of ``shadow_tpu/net/tcp.py:demux``.
 * ``tcp_ack`` (K9): the ACK block of ``Tcp.on_segment`` — RTT, Reno and
-  NewReno, the SACK scoreboard and the retransmission choice.
+  NewReno, the SACK scoreboard and the retransmission choice; on the card
+  it updates the socket's fields in place.
 * ``tcp_reorder`` (K10): the data-receive block of ``Tcp.on_segment``
   (the reorder board) and the SACK word of its ACK reply; on the card it
   updates the board, ``rcv_nxt`` and ``bytes_received`` in place.
-* ``tcp_out`` (K11): the output pump ``Tcp.on_out``.
+* ``tcp_out`` (K11): the output pump ``Tcp.on_out``; on the card it
+  updates the socket's fields in place.
 
 The optimistic driver and the network stack's NIC and link run four more:
 
@@ -55,12 +57,13 @@ The optimistic driver and the network stack's NIC and link run four more:
 
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no fallback from one to the
-other. Three kernels write into tensors they are given: ``loop_route``
-the micro-step's boxes, ``ring_append`` and ``tcp_reorder`` the state
-fields their sub-state classes list in ``IN_PLACE`` (``SimState.snapshot()``
-clones those); each ``Kernel``'s ``writes`` says which arguments. The
-plain versions work out of place. A wrapper adds one to its kernel's
-``launches`` where it launches the kernel and nowhere else.
+other. Five kernels write into tensors they are given: ``loop_route``
+the micro-step's boxes; ``ring_append``, ``tcp_ack``, ``tcp_reorder``
+and ``tcp_out`` the state fields their sub-state classes list in
+``IN_PLACE`` (``SimState.snapshot()`` clones those); each ``Kernel``'s
+``writes`` says which arguments. The plain versions work out of place.
+A wrapper adds one to its kernel's ``launches`` where it launches the
+kernel and nowhere else.
 
 The kernels are built with nvcc for ``sm_90a`` at first use, into
 ``_build/`` beside this file, and loaded with ctypes; every pointer and
@@ -108,8 +111,9 @@ _L = ctypes.c_longlong
 class Kernel:
     """One CUDA kernel: its source, C entry and argument types, and the
     count of its launches. ``writes`` maps the positions of the wrapper's
-    arguments that the kernel writes in place on the card to the fields
-    of its result that return them."""
+    arguments that the kernel writes in place on the card to where its
+    result returns them (``written_result``): a field's name, or
+    ("fields", k) for the k-th tensor of the tuple ``fields``."""
 
     name: str
     argtypes: tuple
@@ -170,7 +174,8 @@ TCP_DEMUX = Kernel(
      _P, _P, _P,  # outputs
      _I, _I, _P),
 )
-# tcp_ack and tcp_out take host arrays of their input and output pointers
+# tcp_ack and tcp_out take host arrays of their input and output pointers;
+# their writes are set beside ACK_IN and OUT_IN below
 TCP_ACK = Kernel("tcp_ack", (_P, _P, _I, _I, _I, _P))
 TCP_REORDER = Kernel(
     "tcp_reorder",
@@ -201,6 +206,15 @@ KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def written_result(out, where) -> torch.Tensor:
+    """The tensor of a kernel's result that a value of its ``writes``
+    names."""
+    if isinstance(where, str):
+        return getattr(out, where)
+    name, k = where
+    return getattr(out, name)[k]
 
 
 # ---------------------------------------------------------------------------
@@ -1271,6 +1285,20 @@ def _tcp_args(name, fields, names, H, S):
                  for f, n in zip(fields, names))
 
 
+def _own_storage(name: str, written, args) -> None:
+    """Raise unless each tensor the kernel writes in place shares its
+    storage with no other argument: the kernel reads and writes it through
+    one pointer, so another argument that reads the same memory would see
+    the kernel's writes, which the plain version never shows it."""
+    ptrs = [t.untyped_storage().data_ptr() for t in args
+            if t is not None and t.untyped_storage().nbytes()]
+    for t in written:
+        if t.untyped_storage().nbytes() and ptrs.count(
+                t.untyped_storage().data_ptr()) > 1:
+            raise ValueError(f"{name}: a field it writes in place shares "
+                             f"its storage with another argument")
+
+
 def _ptr_array(ptrs) -> ctypes.Array:
     """A host array of device pointers for an entry that takes many; the
     caller holds it until the entry has returned (the entry copies the
@@ -1349,7 +1377,8 @@ def tcp_demux(used, local_port, peer_host, peer_port, state, mask, dport,
 
 # --- K9 tcp_ack ---
 
-# the [H, S] fields tcp_ack reads, and those it returns (new tensors)
+# the [H, S] fields tcp_ack reads, and those it writes (on the card in
+# place, into the ACK_IN tensors of the same names)
 ACK_IN = ("state", "snd_una", "snd_nxt", "snd_max", "snd_wnd",
           "snd_buf_end", "fin_seq", "fin_sent", "cwnd", "ssthresh",
           "dup_acks", "fast_recovery", "recover", "sack_bits", "rtx_high",
@@ -1358,6 +1387,8 @@ ACK_IN = ("state", "snd_una", "snd_nxt", "snd_max", "snd_wnd",
 ACK_OUT = ("state", "snd_una", "snd_nxt", "snd_wnd", "cwnd", "ssthresh",
            "dup_acks", "fast_recovery", "recover", "sack_bits", "rtx_high",
            "srtt", "rttvar", "rto", "rtt_armed", "rtx_expire", "bytes_acked")
+TCP_ACK.writes = {9 + ACK_IN.index(f): ("fields", k)
+                  for k, f in enumerate(ACK_OUT)}
 # bits of AckOut.flags
 (ACK_SR_EST, ACK_NEW_ACKED, ACK_INFLATE, ACK_DATA_RTX, ACK_FIN_RTX,
  ACK_TW_ENTER, ACK_FREE, ACK_DUP, ACK_TRIGGER_FR, ACK_PARTIAL,
@@ -1367,7 +1398,9 @@ ACK_OUT = ("state", "snd_una", "snd_nxt", "snd_wnd", "cwnd", "ssthresh",
 class AckOut(NamedTuple):
     """The ACK block's result: the ``ACK_OUT`` fields after it, and per
     host its decisions (``flags``, bits ``ACK_*``) and the segment of a
-    data or FIN retransmission."""
+    data or FIN retransmission. On the card ``fields`` are the tensors the
+    kernel was given, updated in place; the plain version returns new
+    tensors."""
 
     fields: tuple
     flags: torch.Tensor  # [H] int32
@@ -1521,9 +1554,20 @@ def tcp_ack_plain(mask, slot, flags, seg_ack, seg_len, seg_wnd, seg_sack,
 def tcp_ack(mask, slot, flags, seg_ack, seg_len, seg_wnd, seg_sack, st, now,
             *fields, mss: int) -> AckOut:
     """The ACK block of one incoming segment per host (see
-    ``tcp_ack_plain``); ``fields`` are the ``ACK_IN`` fields, [H, S]."""
+    ``tcp_ack_plain``); ``fields`` are the ``ACK_IN`` fields, [H, S].
+
+    On the card the kernel updates the ``ACK_OUT`` fields in place, at
+    each masked host's slot and nowhere else, and returns those very
+    tensors in ``fields``; they are ``TcpState.IN_PLACE`` fields
+    (``SimState.snapshot()`` clones them). ``flags``, ``rtx_seq``,
+    ``rtx_len`` and ``fin_seq`` are new tensors. A written field may
+    share its storage with no other argument (raises). To compare the
+    kernel with its plain version, hand it clones of the written
+    fields."""
     per_host = (mask, slot, flags, seg_ack, seg_len, seg_wnd, seg_sack, st,
                 now)
+    _own_storage("tcp_ack", (fields[i - 9] for i in TCP_ACK.writes),
+                 (*per_host, *fields))
     if not _on_card(*per_host, *fields):
         return tcp_ack_plain(*per_host, *fields, mss=mss)
     H, S = fields[0].shape
@@ -1533,15 +1577,13 @@ def tcp_ack(mask, slot, flags, seg_ack, seg_len, seg_wnd, seg_sack, st, now,
         per_host, hdt, ("mask", "slot", "flags", "seg_ack", "seg_len",
                         "seg_wnd", "seg_sack", "st", "now"))),
         *_tcp_args("tcp_ack", fields, ACK_IN, H, S))
-    outs = tuple(torch.empty((H, S), dtype=TCP_DTYPES[n], device=dev)
-                 for n in ACK_OUT)
     per = tuple(torch.empty(H, dtype=torch.int32, device=dev)
                 for _ in range(4))
     p_in = _ptr_array(ins)
-    p_out = _ptr_array([t.data_ptr() for t in outs + per])
+    p_out = _ptr_array([t.data_ptr() for t in per])
     _launch(TCP_ACK, ctypes.addressof(p_in), ctypes.addressof(p_out), H, S,
             mss, _stream(mask))
-    return AckOut(outs, *per)
+    return AckOut(tuple(fields[i - 9] for i in TCP_ACK.writes), *per)
 
 
 # --- K10 tcp_reorder ---
@@ -1659,13 +1701,17 @@ OUT_IN = ("out_pending", "used", "state", "snd_una", "snd_nxt", "snd_max",
           "rtt_start", "fin_seq")
 OUT_OUT = ("out_pending", "snd_nxt", "snd_max", "fin_seq", "fin_sent",
            "state", "rtt_armed", "rtt_seq", "rtt_start")
+TCP_OUT.writes = {3 + OUT_IN.index(f): ("fields", k)
+                  for k, f in enumerate(OUT_OUT)}
 # bits of OutOut.flags
 OUT_SEND_DATA, OUT_SEND_FIN, OUT_SKIP, OUT_RTX, OUT_MORE = range(5)
 
 
 class OutOut(NamedTuple):
     """The output pump's result: the ``OUT_OUT`` fields after it, and per
-    host its decisions (``flags``, bits ``OUT_*``) and the segment."""
+    host its decisions (``flags``, bits ``OUT_*``) and the segment. On the
+    card ``fields`` are the tensors the kernel was given, updated in
+    place; the plain version returns new tensors."""
 
     fields: tuple
     flags: torch.Tensor  # [H] int32
@@ -1747,7 +1793,17 @@ def tcp_out_plain(mask, slot, now, *fields, mss: int) -> OutOut:
 
 def tcp_out(mask, slot, now, *fields, mss: int) -> OutOut:
     """The output pump of one event per host (see ``tcp_out_plain``);
-    ``fields`` are the ``OUT_IN`` fields, [H, S]."""
+    ``fields`` are the ``OUT_IN`` fields, [H, S].
+
+    On the card the kernel updates the ``OUT_OUT`` fields in place, at
+    each masked host's slot and nowhere else, and returns those very
+    tensors in ``fields``; they are ``TcpState.IN_PLACE`` fields
+    (``SimState.snapshot()`` clones them). The per-host results are new
+    tensors. A written field may share its storage with no other argument
+    (raises). To compare the kernel with its plain version, hand it
+    clones of the written fields."""
+    _own_storage("tcp_out", (fields[i - 3] for i in TCP_OUT.writes),
+                 (mask, slot, now, *fields))
     if not _on_card(mask, slot, now, *fields):
         return tcp_out_plain(mask, slot, now, *fields, mss=mss)
     H, S = fields[0].shape
@@ -1756,15 +1812,13 @@ def tcp_out(mask, slot, now, *fields, mss: int) -> OutOut:
            _check(slot, torch.int32, (H,), "slot"),
            _check(now, torch.int64, (H,), "now"),
            *_tcp_args("tcp_out", fields, OUT_IN, H, S))
-    outs = tuple(torch.empty((H, S), dtype=TCP_DTYPES[n], device=dev)
-                 for n in OUT_OUT)
     per = tuple(torch.empty(H, dtype=torch.int32, device=dev)
                 for _ in range(5))
     p_in = _ptr_array(ins)
-    p_out = _ptr_array([t.data_ptr() for t in outs + per])
+    p_out = _ptr_array([t.data_ptr() for t in per])
     _launch(TCP_OUT, ctypes.addressof(p_in), ctypes.addressof(p_out), H, S,
             mss, _stream(mask))
-    return OutOut(outs, *per)
+    return OutOut(tuple(fields[i - 3] for i in TCP_OUT.writes), *per)
 
 
 # ---------------------------------------------------------------------------

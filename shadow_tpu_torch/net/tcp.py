@@ -13,10 +13,12 @@ selected socket that returns its decisions: ``tcp_demux`` (the socket
 match), ``tcp_ack`` (the ACK block of ``on_segment``: RTT, Reno/NewReno,
 the SACK scoreboard and the retransmit choice), ``tcp_reorder`` (the
 reorder board and the SACK word of the reply) and ``tcp_out`` (the output
-pump). The emissions and the app hooks stay here, called in the JAX
-package's order, so the records, their sequence numbers and the audit
-chain come out the same. The handshake, RST, FIN and TIME_WAIT blocks and
-``on_timer`` are PyTorch ops.
+pump). On the card the last three write the table's fields in place
+(``TcpState.IN_PLACE``): no code reads a field of the table from before
+such a call after it. The emissions and the app hooks stay here, called
+in the JAX package's order, so the records, their sequence numbers and
+the audit chain come out the same. The handshake, RST, FIN and TIME_WAIT
+blocks and ``on_timer`` are PyTorch ops.
 """
 
 from __future__ import annotations
@@ -122,9 +124,12 @@ class TcpState:
     rtx_sack: torch.Tensor
     rtx_walk: torch.Tensor
 
-    # the board fields, which tcp_reorder writes in place on the card
-    # (SimState.snapshot clones them)
-    IN_PLACE = ("ooo_map", "rcv_nxt", "bytes_received")
+    # the fields the TCP kernels write in place on the card (SimState.
+    # snapshot clones them): tcp_reorder's board fields, then those of
+    # tcp_ack and tcp_out
+    IN_PLACE = tuple(dict.fromkeys(
+        ("ooo_map", "rcv_nxt", "bytes_received")
+        + kernels.ACK_OUT + kernels.OUT_OUT))
 
     def replace(self, **fields) -> "TcpState":
         return state_mod.replace(self, **fields)

@@ -10,10 +10,12 @@ path's kernels take seeded random states (``random_*`` below: NEVER
 lanes, full rings and boxes, key ties, token debt, drop mode;
 ``chip_smoke.synthetic_select`` at widths over many blocks, with pool
 budgets that bind at a block boundary) and whole runs of a congested UDP
-flood; ``loop_route``, ``ring_append`` and ``tcp_reorder`` write into
-the tensors they are given, so each is handed clones after its plain
-version has run, and must return the clones with every cell its plain
-version leaves as it was unchanged; the TCP kernels take seeded lossy
+flood; ``loop_route``, ``ring_append``, ``tcp_ack``, ``tcp_reorder`` and
+``tcp_out`` write into the tensors they are given, so each is handed
+clones after its plain version has run, and must return the clones with
+every cell its plain version leaves as it was unchanged (the TCP kernels
+every cell outside the masked hosts' slots); the TCP kernels take seeded
+lossy
 tables
 (``chip_smoke.synthetic_tcp_*`` and ``random_tcp_*``: every branch of
 the ACK and reorder blocks, sequence numbers across the wrap, slots
@@ -672,17 +674,38 @@ def test_tcp_demux_matches_plain(card, seed):
     _eq(got, want)
 
 
+def _tcp_in_place(k, n_per_host, args, kw):
+    """The plain version on ``args``, then the kernel ``k`` (tcp_ack or
+    tcp_out) on clones of the fields it writes: equal results, the clones
+    returned, and every cell outside the masked hosts' slots as it was."""
+    name = k.name
+    want = getattr(kernels, f"{name}_plain")(*args, **kw)
+    work = list(args)
+    for i in k.writes:
+        work[i] = args[i].clone()
+    n = k.launches
+    got = getattr(kernels, name)(*work, **kw)
+    assert k.launches == n + 1
+    _eq(got.fields, want.fields)
+    _eq(got[1:], want[1:])
+    mask, slot = args[0], args[1].long()
+    S = args[n_per_host].shape[1]
+    hit = mask[:, None] & (slot[:, None]
+                           == torch.arange(S, device=mask.device)[None, :])
+    for i, (_, j) in k.writes.items():
+        assert got.fields[j] is work[i]
+        assert torch.equal(work[i][~hit], args[i][~hit])
+    return want
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_tcp_ack_matches_plain(card, seed):
     from chip_smoke import BRANCHES, synthetic_tcp_ack
 
     args, kw = synthetic_tcp_ack(2048, 8, card, seed=500 + seed)
-    got, want = kernels.tcp_ack(*args, **kw), kernels.tcp_ack_plain(*args,
-                                                                    **kw)
+    want = _tcp_in_place(kernels.TCP_ACK, 9, args, kw)
     for b in BRANCHES["tcp_ack"].values():  # every branch ran
         assert int(((want.flags >> b) & 1).sum()) > 0, b
-    _eq(got.fields, want.fields)
-    _eq(got[1:], want[1:])
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -726,12 +749,9 @@ def test_tcp_out_matches_plain(card, seed):
     fields = tuple(torch.as_tensor(
         _i32(f[n]) if kernels.TCP_DTYPES[n] == torch.int32 else f[n],
         dtype=kernels.TCP_DTYPES[n], device=card) for n in kernels.OUT_IN)
-    got = kernels.tcp_out(*per, *fields, mss=MSS)
-    want = kernels.tcp_out_plain(*per, *fields, mss=MSS)
+    want = _tcp_in_place(kernels.TCP_OUT, 3, per + fields, {"mss": MSS})
     for b in range(5):
         assert int(((want.flags >> b) & 1).sum()) > 0, b
-    _eq(got.fields, want.fields)
-    _eq(got[1:], want[1:])
 
 
 # tests/test_torch_tcp.py's "lossy" scenario: 5 % loss, 3 clients
@@ -899,3 +919,21 @@ def test_rolled_back_attempt_with_appends_keeps_its_base(card):
         sim, counts, ("nic", "router"))
     assert viol < NEVER and appends["nic"] > 0 and appends["router"] > 0
     assert kernels.RING_APPEND.launches > n
+
+
+def test_rolled_back_tcp_attempt_keeps_its_base(card):
+    """An optimistic attempt of config 3's shape at 32 hosts runs the
+    in-place tcp_ack and tcp_out on masked hosts and rolls back: its base
+    keeps every tensor, object, version and value (the attempt steps a
+    snapshot of it, which owns the TCP table's written fields)."""
+    import chip_smoke
+
+    sim = build_simulation(chip_smoke.config3(chip_smoke.SNAPSHOT_TCP_HOSTS),
+                           device=card)
+    counts = {}
+    sim.ops = chip_smoke.counting_tcp(kernels.KERNEL_OPS, counts)
+    n = kernels.TCP_ACK.launches, kernels.TCP_OUT.launches
+    _, _, viol, _, seen = chip_smoke.rolled_back_attempt(
+        sim, counts, ("tcp_ack", "tcp_out"))
+    assert viol < NEVER and seen["tcp_ack"] > 0 and seen["tcp_out"] > 0
+    assert kernels.TCP_ACK.launches > n[0] and kernels.TCP_OUT.launches > n[1]
