@@ -21,15 +21,17 @@ their NICs. Phases, each printing its numbers beside the card's name and
 power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the fifteen CUDA kernels from ``shadow_tpu_torch/csrc`` with nvcc
-   (one process per source, all at once) and print ptxas's register and
-   shared-memory report, and for ``loop_select``, ``loop_route``,
-   ``ring_append``, ``tcp_ack``, ``tcp_reorder`` and ``tcp_out`` each
-   entry function's registers, shared memory and spill bytes;
+2. build the eighteen CUDA kernels from ``shadow_tpu_torch/csrc`` with
+   nvcc (one process per source, all at once) and print ptxas's register
+   and shared-memory report, and for ``loop_select``, ``loop_route``,
+   ``ring_append``, ``tcp_ack``, ``tcp_reorder``, ``tcp_out``, ``nic_tx``,
+   ``nic_rx`` and ``nic_gate`` each entry function's registers, shared
+   memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
-   graph), its issue time (the same calls back to back from Python) and
+   graph), its issue time (the same calls back to back from Python, the
+   median of five rounds) and
    the plain version's time (CUDA events, warmed) beside the bound; and
    the window step's parts, timed (in phases 6, 9 and 12 five kernels
    write into their arguments: ``loop_route`` its boxes, ``ring_append``
@@ -49,14 +51,15 @@ power limit:
    equal;
 6. every kernel of config 2's path (extract_slots at Kc = 13,
    audit_commit on the micro-steps' taken events, loop_select,
-   loop_route, ring_append) at its widths, on inputs captured from a real
-   window of the flood run (each kernel's busiest call), plus
+   loop_route, ring_append, and the NIC's nic_tx, nic_rx and nic_gate)
+   at its widths, on inputs captured from two real
+   windows of the flood run (each kernel's busiest call), plus
    codel_dequeue on a synthetic full-width router state in drop mode with
    stale packets (the flood never queues at a router, so its run never
    calls it): each equal bit for bit to its plain version, timed beside
    its bound; and a few flood windows run twice from one state, alone and
-   under the profiler (device time by kernel and the device's busy share
-   of the same windows);
+   under the profiler (device time by kernel, device launches per
+   micro-step and the device's busy share of the same windows);
 7. config 2 from t = 0 to the stop in one ``run()`` through the kernels,
    launch counts set to 0 just before it and read just after: counters
    and audit chain equal to the JAX package's reference values below, and
@@ -64,7 +67,8 @@ power limit:
 8. config 2 to 2 s (of 4), through the kernels and through the plain
    versions on the card: counters, chain and every state array equal;
 9. every kernel of config 3's path (the loop path's six at Kc = 17,
-   B = 8, O = 32 and no bulk batch, and the four TCP kernels tcp_demux,
+   B = 8, O = 32 and no bulk batch, nic_tx, nic_rx, the receive pump's
+   nic_refill, and the four TCP kernels tcp_demux,
    tcp_ack, tcp_reorder and tcp_out) on its busiest call over 300
    micro-steps of the transfers, with the number of calls that took each
    TCP branch, plus tcp_ack and tcp_reorder on synthetic full-width lossy
@@ -79,16 +83,20 @@ power limit:
     reference values below;
 11. config 3 with the plain versions on the card: counters, chain and
     every state array equal to phase 10's;
-12. the kernels of config 4's path (K12 ``spec_check``, K13
-    ``nic_refill``, K15 ``link_send`` and the loop path's) on their
-    busiest call in an optimistic window of config 4, those of the mixed
-    run likewise, and every kernel of the NIC-bound transfer (with K14
-    ``send_dequeue``) on its busiest call to 1.06 s, its launches counted
+12. the kernels of config 4's path (K12 ``spec_check``, K16
+    ``nic_tx``, K17 ``nic_rx``, K18 ``nic_gate`` and the loop path's) on
+    their busiest call in an optimistic window of config 4, those of the
+    mixed run likewise, and every kernel of the NIC-bound transfer (with
+    its pumps' K13 ``nic_refill``, K14 ``send_dequeue`` and K15
+    ``link_send``) on its busiest call to 1.06 s, its launches counted
     from t = 0, and a few of its windows alone and under the profiler;
     plus full-width synthetic tables for the branches the
     runs miss (K12 with violations and filler destinations, K13 with
-    NEVER lanes and long idle gaps, K14 with wrapped rings, K15 with
-    loss 0.5, unreachable pairs and control packets), and ``loop_select``
+    NEVER lanes and long idle gaps, K14 with wrapped rings, K15 and K16
+    with loss 0.5, unreachable pairs, loopback and control packets, K16
+    and K17 with token debt, NEVER lanes and bootstrap, K17 with full
+    and wrapped router rings, K18 with debt and a window wholly inside
+    bootstrap), and ``loop_select``
     on a seeded synthetic micro-step at 100,352 hosts
     (``bench.py:stage_udp_flood_100k``'s width) at config 4's K, B, O, G
     and PP: each equal bit for bit to its plain version, timed beside its
@@ -427,20 +435,31 @@ PHASE8_STOP_S = 2
 
 # the kernels of each main path
 PHOLD_PATH = ("extract_slots", "phold_forward", "audit_commit", "spec_check")
+# every send through the stack takes nic_tx (the direct send), every
+# arrival nic_rx
 LOOP_PATH = ("extract_slots", "audit_commit", "loop_select", "loop_route",
-             "codel_dequeue", "ring_append", "spec_check", "nic_refill",
-             "link_send")
+             "codel_dequeue", "ring_append", "spec_check", "nic_tx",
+             "nic_rx")
 # config 2 never queues at a router (1 Gbit, 7 clients a server), so no
-# host takes a receive-pump event and codel_dequeue's handler never runs
-CONFIG2_PATH = tuple(k for k in LOOP_PATH if k != "codel_dequeue")
+# host takes a receive-pump event and codel_dequeue's handler never runs;
+# its UDP arrivals are batched behind nic_gate
+CONFIG2_PATH = tuple(k for k in LOOP_PATH if k != "codel_dequeue") + (
+    "nic_gate",)
 TCP_PATH = ("tcp_demux", "tcp_ack", "tcp_reorder", "tcp_out")
-CONFIG3_PATH = LOOP_PATH + TCP_PATH
+# config 3's routers queue a few packets, so its receive pump runs, and
+# refills its bucket with nic_refill; TCP takes no bulk batch (no
+# nic_gate)
+CONFIG3_PATH = LOOP_PATH + TCP_PATH + ("nic_refill",)
 # config 4 is config 2's flood at 50,176 hosts under the optimistic driver
 CONFIG4_PATH = CONFIG2_PATH
 MIXED_PATH = PHOLD_PATH
 # no NIC send ring queues at 1 Gbit (configs 2 to 4), so only the
-# NIC-bound transfer takes the send pump's dequeue
-NIC_PATH = CONFIG3_PATH + ("send_dequeue",)
+# NIC-bound transfer takes the send pump: its dequeue and its link_send
+NIC_PATH = CONFIG3_PATH + ("send_dequeue", "link_send")
+# the pumps' kernels, which the runs at 1 Gbit launch only where a
+# pump runs: never on configs 2 and 4, and on config 3 nic_refill once a
+# receive-pump call (as often as codel_dequeue)
+PUMP_ONLY = ("nic_refill", "link_send")
 
 # H100 SXM published peaks: HBM bytes/s, and
 # float32 outside the tensor cores, the nearest published rate for the
@@ -468,6 +487,9 @@ REPLACES = {
     "nic_refill": "shadow_tpu/net/nic.py:127",
     "send_dequeue": "shadow_tpu/net/qdisc/__init__.py:93",
     "link_send": "shadow_tpu/net/link.py:23",
+    "nic_tx": "shadow_tpu/net/stack.py:142",
+    "nic_rx": "shadow_tpu/net/stack.py:293",
+    "nic_gate": "shadow_tpu/net/stack.py:483",
 }
 
 
@@ -529,12 +551,31 @@ def graph_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+# rounds of 200 calls from Python an issue time is the median of: one
+# round's reading of the same wrapper moved by up to half between calls
+ISSUE_ROUNDS = 5
+
+
+def issue_times(fn, base=None) -> dict:
+    """``issue_ms``: the median over ISSUE_ROUNDS rounds of
+    ``time_ms(fn, 200)`` (less ``time_ms(base, 200)`` of the same round,
+    where given); ``issue_rounds_ms``: every round's reading."""
+    rounds = [time_ms(fn, 200) - (0.0 if base is None else time_ms(base, 200))
+              for _ in range(ISSUE_ROUNDS)]
+    return dict(issue_ms=float(np.median(rounds)), issue_rounds_ms=rounds)
+
+
+def issue_rounds(r: dict) -> str:
+    """The rounds behind an issue time, for a phase's line."""
+    return " ".join(f"{x:.6f}" for x in r["issue_rounds_ms"])
+
+
 def kernel_times(kern, plain) -> dict:
     """``ms``: a kernel call's device time (``graph_ms``, 200 calls);
     ``issue_ms``: the same calls back to back from Python (CUDA events,
-    200), which at small sizes measures the wrapper's host cost;
-    ``plain_ms``: the plain version's calls back to back (20)."""
-    return dict(ms=graph_ms(kern, 200), issue_ms=time_ms(kern, 200),
+    ``issue_times``), which at small sizes measures the wrapper's host
+    cost; ``plain_ms``: the plain version's calls back to back (20)."""
+    return dict(ms=graph_ms(kern, 200), **issue_times(kern),
                 plain_ms=time_ms(plain, 20))
 
 
@@ -609,8 +650,7 @@ def in_place_times(name: str, kern, plain, args, kw) -> dict:
     for _ in range(IN_PLACE_ROUNDS):
         alone.append(graph_ms(restore, 200))
         diffs.append(graph_ms(call, 200) - alone[-1])
-    return dict(ms=float(np.median(diffs)),
-                issue_ms=time_ms(call, 200) - time_ms(restore, 200),
+    return dict(ms=float(np.median(diffs)), **issue_times(call, restore),
                 plain_ms=time_ms(lambda: plain(*args, **kw), 20),
                 restore_ms=float(np.median(alone)), rounds_ms=diffs)
 
@@ -793,6 +833,36 @@ def kernel_bound(name: str, args, kw, out):
                  + (H * (4 + 4 + 4 + 8 + 4) if multi else 12)
                  + 16 * n_draw)
         return bound(reads + nbytes(*out), UNIFORM_OPS * n_draw)
+    if name == "nic_tx":
+        mask, now, dst, payload = args[0], args[1], args[2], args[11]
+        H = mask.shape[0]
+        rolled = out.deliver | out.drop
+        control = payload[:, kernels.W_LEN] == 0
+        n_draw = int((rolled & ~(now < kw["bootstrap_end"])
+                      & ~control).sum())
+        multi = args[14].shape[0] > 1
+        # every host's mask, queued flag, gid, bucket, tx counters, draw
+        # counter and its packet's protocol and length words; now and dst
+        # (each may be one value for all); with several vertices its
+        # vertex, its destination's vertex and its path's latency and
+        # reliability, with one the one path's; the key pair of each host
+        # that draws; the four run counters
+        reads = (nbytes(mask, *args[3:11], args[17], *args[18]) + 8 * H
+                 + per_host_bytes(now, H) + per_host_bytes(dst, H)
+                 + (H * (4 + 4 + 8 + 4) if multi else 12) + 16 * n_draw)
+        return bound(reads + nbytes(*out), UNIFORM_OPS * n_draw)
+    if name == "nic_rx":
+        H = args[0].shape[0]
+        # every host's mask, src, gid, bucket, router ring head and tail,
+        # CoDel interval and mode, now (may be one value for all) and its
+        # packet's protocol and length words
+        reads = (nbytes(*args[:3], *args[4:10], *args[11:])
+                 + per_host_bytes(args[3], H) + 8 * H)
+        return bound(reads + nbytes(*out), 0)
+    if name == "nic_gate":
+        # every host's two buckets, router ring head and tail and three
+        # flags in, its gate out
+        return bound(nbytes(*args) + nbytes(out), 0)
     raise ValueError(name)
 
 
@@ -874,7 +944,8 @@ def phase_kernels(card: str) -> dict:
     for name, r in results.items():
         print(f"[{card}] phase 3 {name}: {r['shape']} max_abs_err="
               f"{r['err']} kernel_ms={r['ms']:.6f} issue_ms="
-              f"{r['issue_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"{r['issue_ms']:.6f} (rounds {issue_rounds(r)}) "
+              f"plain_ms={r['plain_ms']:.6f} "
               f"bound_ms={r['bound'][0]:.6f} "
               f"({r['bound'][1]})", flush=True)
         if r["err"] != 0:
@@ -959,6 +1030,10 @@ def activity(name: str, args, out) -> int:
         return int(out.sent.sum())  # packets dequeued
     if name == "link_send":
         return int(args[0].sum())  # packets sent
+    if name in ("nic_tx", "nic_rx"):
+        return int(args[0].sum())  # packets offered, packets arrived
+    if name == "nic_gate":
+        return int(out.sum())  # extra arrivals granted
     return int(args[5].sum())  # ring_append, tcp_demux: the mask
 
 
@@ -1212,8 +1287,13 @@ def profile_windows(card: str, sim, label: str, span: int,
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     ours = port_kernels(rows)
+    n_dev = sum(r[2] for r in rows)
+    n_ours = sum(n for _, n in ours.values())
     print(f"[{card}] {label} [{first}, {until}): micro_steps={steps} "
           f"wall_s={wall:.4f} alone, {wall_prof:.4f} under the profiler; "
+          f"device launches (kernels, copies and sets) {n_dev}: "
+          f"device_launches_per_micro_step={n_dev / max(steps, 1):.2f}, "
+          f"the port's kernels {n_ours / max(steps, 1):.2f}; "
           f"device busy (kernels and copies) {busy_s:.4f} s: busy_share="
           f"{busy_s / wall:.4f} of the wall alone, "
           f"{busy_s / wall_prof:.4f} of the profiled wall; top device "
@@ -1260,7 +1340,7 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         if name == "loop_route":
             err = max(max_abs_err(got.boxes, want.boxes),
                       max_abs_err(got[1:], want[1:]))
-        elif name in ("extract_slots", "spec_check"):
+        elif name in ("extract_slots", "spec_check", "nic_gate"):
             err = max_abs_err([got], [want])
         elif name in ("tcp_ack", "tcp_out"):
             err = max(max_abs_err(got.fields, want.fields),
@@ -1289,6 +1369,7 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         r = results[label]
         print(f"[{card}] {phase} {label}: max_abs_err={err}{extra} "
               f"kernel_ms={r['ms']:.6f} issue_ms={r['issue_ms']:.6f} "
+              f"(rounds {issue_rounds(r)}) "
               f"plain_ms={r['plain_ms']:.6f} bound_ms={b[0]:.6f} ({b[1]})"
               + (f" restore_ms={r['restore_ms']:.6f} (subtracted; rounds "
                  + " ".join(f"{x:.6f}" for x in r["rounds_ms"]) + ")"
@@ -1325,12 +1406,16 @@ def phase_loop_kernels(card: str) -> dict:
     sim = build_simulation(CONFIG2)
     sim.run(until=2_000_000_000)
     best: dict = {}
-    sim.ops = capture_ops(best)
-    mn, occ, _, _ = sim._frontier(sim.stop_time)
-    we = min(mn + sim.runahead, sim.stop_time)
-    sim.step_loop(mn, we, occ)
+    sim.ops = capture_ops(best, CONFIG2_PATH)
+    # the clients all send on one 20 ms grid and the path takes 10 ms, so
+    # a window holds either the sends or the arrivals: take two
+    first = sim._frontier(sim.stop_time).mn
+    for _ in range(2):
+        mn, occ, _, _ = sim._frontier(sim.stop_time)
+        we = min(mn + sim.runahead, sim.stop_time)
+        sim.step_loop(mn, we, occ)
     print(f"[{card}] phase 6 inputs: the busiest call of each kernel in "
-          f"the config-2 window [{mn}, {we}), H={sim.num_hosts} "
+          f"the config-2 windows [{first}, {we}), H={sim.num_hosts} "
           f"K={sim.K} (Kc={sim.K + 1}) B={sim.B} O={sim.O}: "
           + json.dumps({k: v[0] for k, v in best.items()}), flush=True)
     missing = [k for k in CONFIG2_PATH if k not in best]
@@ -1570,6 +1655,114 @@ def synthetic_link_send(H: int, device, seed: int = 31):
         "bootstrap_end": boot}
 
 
+def _three_vertex_paths(rs, H: int):
+    """synthetic_link_send's three vertices (one pair unreachable, loss up
+    to 0.5), its bootstrap end, each host's vertex, key pair and draw
+    counter."""
+    ms = 1_000_000
+    lat = np.array([[10, 40, NEVER], [40, 20, 60], [NEVER, 60, 30]])
+    lat = np.where(lat == NEVER, NEVER, lat * ms).astype(np.int64)
+    rel = np.array([[0.5, 0.9, 1.0], [0.9, 0.5, 0.75], [1.0, 0.75, 0.5]],
+                   np.float32)
+    keys = np.stack([rs.integers(0, 2**32, H, dtype=np.int64)
+                     for _ in range(2)], axis=1)
+    return (lat, rel, 1_000 * ms, (np.arange(H) % 3).astype(np.int32), keys,
+            rs.integers(0, 2**32, H, dtype=np.int64))
+
+
+def _buckets(rs, now, H: int):
+    """Token buckets at ``now`` [H]: in debt, below and above an MTU, last
+    refilled 0 to 3 grid ticks ago or long ago (the refill product wraps
+    on NEVER lanes), or at a tick past ``now``'s."""
+    refill = rs.integers(1, 200_000, H)
+    now_tick = np.where(now == NEVER, rs.integers(0, 3_000, H),
+                        now // 1_000_000)
+    tick = now_tick - np.select(
+        [rs.random(H) < 0.6, rs.random(H) < 0.5],
+        [rs.integers(0, 4, H), rs.integers(4, 10**6, H)], -1)
+    return (rs.integers(-100_000, 3_000, H), np.maximum(tick, 0), refill,
+            refill + 1500)
+
+
+def _packets(rs, H: int, P: int = 12) -> np.ndarray:
+    """[H, P] packet words: UDP and TCP, control packets (length 0)."""
+    pl = rs.integers(-2**31, 2**31, (H, P)).astype(np.int32)
+    pl[:, 0] = rs.choice([17, 6], H)
+    pl[:, 3] = np.where(rs.random(H) < 0.15, 0, rs.integers(1, 1461, H))
+    return pl
+
+
+def synthetic_nic_tx(H: int, device, seed: int = 41):
+    """Arguments of nic_tx: synthetic_link_send's three vertices (one
+    pair unreachable, loss up to 0.5), buckets in debt and refilled over
+    idle gaps, NEVER ``now`` on unmasked lanes, hosts on both sides of the
+    end of bootstrap, queued NICs, loopback and control packets, and
+    destinations outside [0, H) on the hosts that send nothing."""
+    rs = np.random.default_rng(seed)
+    lat, rel, boot, vertex, keys, counter = _three_vertex_paths(rs, H)
+    ms = 1_000_000
+    mask = rs.random(H) < 0.8
+    gid = np.arange(H, dtype=np.int32)
+    now = rs.integers(boot - 20 * ms, boot + 200 * ms, H)
+    now[~mask & (rs.random(H) < 0.5)] = NEVER
+    dst = np.where(mask, np.where(rs.random(H) < 0.1, gid,
+                                  rs.integers(0, H, H)),
+                   rs.integers(-2 * H, 2 * H, H)).astype(np.int32)
+    rem, tick, refill, cap = _buckets(rs, now, H)
+    cols = (mask, now, dst, rs.random(H) < 0.2, gid, rem, tick, refill, cap,
+            rs.integers(0, 10**9, H), rs.integers(0, 10**12, H),
+            _packets(rs, H), vertex, vertex, lat, rel, keys, counter)
+    counters = [torch.tensor(int(c), device=device)
+                for c in rs.integers(0, 10**9, 4)]
+    return tuple(torch.as_tensor(np.asarray(a), device=device)
+                 for a in cols) + (counters,), {"bootstrap_end": boot}
+
+
+def synthetic_nic_rx(H: int, device, seed: int = 43, Q: int = 16):
+    """Arguments of nic_rx: loopback and remote arrivals, NEVER ``now`` on
+    unmasked lanes, both sides of the end of bootstrap, buckets in debt
+    and refilled over idle gaps, router rings empty, part full, full and
+    with their counters across the int32 wrap, CoDel in and out of drop
+    mode."""
+    rs = np.random.default_rng(seed)
+    boot, ms = 1_000_000_000, 1_000_000
+    mask = rs.random(H) < 0.8
+    gid = np.arange(H, dtype=np.int32)
+    src = np.where(rs.random(H) < 0.1, gid,
+                   rs.integers(0, H, H)).astype(np.int32)
+    now = rs.integers(boot - 20 * ms, boot + 200 * ms, H)
+    now[~mask & (rs.random(H) < 0.5)] = NEVER
+    rem, tick, refill, cap = _buckets(rs, now, H)
+    head = np.where(rs.random(H) < 0.1, rs.integers(2**31 - 20, 2**31, H),
+                    rs.integers(0, 2**30, H))
+    n = np.select([rs.random(H) < 0.5, rs.random(H) < 0.5], [0, Q],
+                  rs.integers(1, Q, H))
+    cols = (mask, src, gid, now, rem, tick, refill, cap, _wrap32(head),
+            _wrap32(head + n), _packets(rs, H),
+            np.where(rs.random(H) < 0.3, 0, rs.integers(1, 10**10, H)),
+            rs.random(H) < 0.4)
+    return tuple(torch.as_tensor(np.asarray(a), device=device)
+                 for a in cols), {"slots": Q, "bootstrap_end": boot}
+
+
+def synthetic_nic_gate(H: int, device, seed: int = 47, free: bool = False,
+                       G: int = 8):
+    """Arguments of nic_gate: both buckets in debt, below and above
+    several MTUs, refilled to the window start over idle gaps; router
+    rings and NIC queues empty and not, pumps armed and not."""
+    rs = np.random.default_rng(seed)
+    ws = 2_500_000_000 + int(rs.integers(0, 10**6))
+    now = np.full(H, ws)
+    rx, tx = _buckets(rs, now, H), _buckets(rs, now, H)
+    rx = (rs.integers(-20_000, 20_000, H), *rx[1:])
+    head = rs.integers(0, 2**30, H)
+    cols = (*rx, *tx, _wrap32(head),
+            _wrap32(head + (rs.random(H) < 0.1)), rs.random(H) < 0.1,
+            rs.random(H) < 0.1, rs.random(H) < 0.1)
+    return tuple(torch.as_tensor(np.asarray(a), device=device)
+                 for a in cols), {"win_start": ws, "free": free, "G": G}
+
+
 def synthetic_select(H: int, K: int, B: int, O: int, PP: int, G: int,
                      need_by_kind, device, seed: int = 37,
                      bulk_kind: int = 0):
@@ -1626,11 +1819,12 @@ def synthetic_select(H: int, K: int, B: int, O: int, PP: int, G: int,
 
 def compiler_view(reports: dict) -> dict:
     """{kernel: {entry function: registers, shared memory bytes, spill
-    bytes (stores + loads)}} of the micro-step's two kernels and the
-    in-place net-stack kernels, from nvcc's -Xptxas -v reports."""
+    bytes (stores + loads)}} of the micro-step's two kernels, the
+    in-place net-stack kernels and the NIC's admission kernels, from
+    nvcc's -Xptxas -v reports."""
     view = {}
     for name in ("loop_select", "loop_route", "ring_append", "tcp_ack",
-                 "tcp_reorder", "tcp_out"):
+                 "tcp_reorder", "tcp_out", "nic_tx", "nic_rx", "nic_gate"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -1685,6 +1879,12 @@ def phase_optimistic_kernels(card: str):
         0, *synthetic_link_send(H, sim.device))
     best4["send_dequeue (synthetic rings)"] = (
         0, *synthetic_send_dequeue(H, NQ, 12, sim.device))
+    best4["nic_tx (synthetic lossy)"] = (0, *synthetic_nic_tx(H, sim.device))
+    best4["nic_rx (synthetic rings)"] = (0, *synthetic_nic_rx(H, sim.device))
+    best4["nic_gate (synthetic debt)"] = (
+        0, *synthetic_nic_gate(H, sim.device))
+    best4["nic_gate (synthetic bootstrap)"] = (
+        0, *synthetic_nic_gate(H, sim.device, free=True))
     # loop_select at bench.py:stage_udp_flood_100k's width, at config
     # 4's K, B, O, G and PP
     _, sa, skw = best4["loop_select"]
@@ -1706,7 +1906,16 @@ def phase_optimistic_kernels(card: str):
                                  **best4["link_send (synthetic lossy)"][2])
     unreach = best4["link_send (synthetic lossy)"][1][0] & ~(
         ls.deliver | ls.drop)
-    if int(viol) == NEVER or not (ls.drop.any() and unreach.any()):
+    tx_args, tx_kw = best4["nic_tx (synthetic lossy)"][1:]
+    tx = kernels.nic_tx_plain(*tx_args, **tx_kw)
+    rx = kernels.nic_rx_plain(*best4["nic_rx (synthetic rings)"][1],
+                              **best4["nic_rx (synthetic rings)"][2])
+    gate = kernels.nic_gate_plain(*best4["nic_gate (synthetic debt)"][1],
+                                  **best4["nic_gate (synthetic debt)"][2])
+    if int(viol) == NEVER or not all(bool(x.any()) for x in (
+            ls.drop, unreach, tx.deliver, tx.drop, tx.loopback,
+            tx.counters[2] > tx_args[18][2], ~tx.direct, rx.local, rx.no_room,
+            rx.queued & ~rx.no_room, gate, gate == 0)):
         fail("phase 12: a synthetic table missed its branch")
 
     sim = build_simulation(MIXED)
@@ -1925,6 +2134,9 @@ def optimistic_phases(card: str):
     for k in CONFIG4_PATH:
         if launches4[k] == 0:
             fail(f"phase 13: kernel {k} never launched")
+    for k in PUMP_ONLY:
+        if launches4[k]:
+            fail(f"phase 13: {k} launched {launches4[k]} times")
     win = sim.obs_snapshot()["win"]
     if win["matrix_dispatches"] or win["rollbacks"] != res4[1]:
         fail(f"phase 13: unexpected window-plane counters {win}")
@@ -2078,6 +2290,9 @@ def main() -> None:
     for k in CONFIG2_PATH:
         if launches2[k] == 0:
             fail(f"phase 7: kernel {k} never launched")
+    for k in PUMP_ONLY:
+        if launches2[k]:
+            fail(f"phase 7: {k} launched {launches2[k]} times")
     if launches2["phold_forward"]:
         fail("phase 7: phold_forward launched on the loop path")
     for what, (got, want) in checks.items():
@@ -2121,6 +2336,14 @@ def main() -> None:
             fail(f"phase 10: kernel {k} never launched")
     if launches3["phold_forward"]:
         fail("phase 10: phold_forward launched on the loop path")
+    if launches3["link_send"] or (launches3["nic_refill"]
+                                  > launches3["codel_dequeue"]):
+        fail("phase 10: link_send launched, or nic_refill more often than "
+             "the receive pump's codel_dequeue")
+    nic = {k: launches3[k] for k in (*PUMP_ONLY, "nic_tx", "nic_rx",
+                                     "nic_gate")}
+    print(f"[{card}] phase 10 the NIC's and the link's launches: "
+          f"{json.dumps(nic)}, sum {sum(nic.values())}", flush=True)
     win = sim.obs_snapshot()["win"]
     if win["loop_dispatches"] != windows3 or win["matrix_dispatches"]:
         fail(f"phase 10: not every window took the loop path: {win}")

@@ -182,6 +182,9 @@ class SimState:
     def with_host(self, **fields) -> "SimState":
         return replace(self, host=replace(self.host, **fields))
 
+    def with_counters(self, **fields) -> "SimState":
+        return replace(self, counters=replace(self.counters, **fields))
+
     def add_counters(self, **deltas) -> "SimState":
         """Add each delta (an int64 scalar tensor) to its counter."""
         c = self.counters

@@ -20,6 +20,7 @@
 //   arrival  = now + lat, wrapping as JAX's int64 add does
 // The draw is skipped where its value cannot matter (no roll, bootstrap,
 // control packet); the counter advances on every rolled lane all the same.
+// The lookup and the roll are link_common.cuh's, which nic_tx shares.
 //
 // Bound: bytes (every host's mask, now, control flag and counter, the
 // key pair of each host that draws, and with several vertices each
@@ -29,14 +30,10 @@
 // thread a host; `now` and `control` may be one value broadcast to every
 // host (stride 0).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "threefry.cuh"
+#include "link_common.cuh"
 
 namespace {
 
-constexpr long long kNever = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int kThreads = 256;
 
 struct Args {
@@ -44,10 +41,7 @@ struct Args {
   const int* dst;
   const long long* now;
   const bool* control;
-  const int* vertex;
-  const int* vtab;
-  const long long* lat_vv;
-  const float* rel_vv;
+  transit::Paths paths;
   const long long* keys;
   const long long* ctr;
   bool* o_deliver;
@@ -55,7 +49,7 @@ struct Args {
   long long* o_arrival;
   long long* o_ctr;
   long long bootstrap_end;
-  int now_stride, control_stride, H, U, T;
+  int now_stride, control_stride, H;
 };
 
 __global__ void __launch_bounds__(kThreads) link_send_kernel(Args a) {
@@ -63,32 +57,17 @@ __global__ void __launch_bounds__(kThreads) link_send_kernel(Args a) {
   if (h >= a.H) return;
   long long lat;
   float rel;
-  if (a.U == 1) {
-    lat = a.lat_vv[0];
-    rel = a.rel_vv[0];
-  } else {
-    int d = a.dst[h];
-    d = d < 0 ? d + a.T : d;  // a negative index counts from the end
-    d = d < 0 ? 0 : (d > a.T - 1 ? a.T - 1 : d);
-    const long long e = (long long)a.vertex[h] * a.U + a.vtab[d];
-    lat = a.lat_vv[e];
-    rel = a.rel_vv[e];
-  }
+  transit::lookup(a.paths, h, a.paths.U == 1 ? 0 : a.dst[h], lat, rel);
   const long long now = a.now[(long long)h * a.now_stride];
-  const bool roll = a.mask[h] && lat != kNever;
-  const long long c = a.ctr[h];
-  bool kept = now < a.bootstrap_end ||
-              a.control[(long long)h * a.control_stride];
-  if (roll && !kept) {
-    const float u = rng::uniform_at((uint32_t)a.keys[2 * h],
-                                    (uint32_t)a.keys[2 * h + 1], (uint32_t)c);
-    kept = u < rel;
-  }
-  a.o_deliver[h] = roll && kept;
-  a.o_drop[h] = roll && !kept;
-  a.o_arrival[h] =
-      (long long)((unsigned long long)now + (unsigned long long)lat);
-  a.o_ctr[h] = roll ? (long long)(uint32_t)((uint32_t)c + 1u) : c;
+  const bool pass = now < a.bootstrap_end ||
+                    a.control[(long long)h * a.control_stride];
+  const transit::Roll r = transit::roll(a.mask[h], lat, rel, now, pass,
+                                        a.keys[2 * h], a.keys[2 * h + 1],
+                                        a.ctr[h]);
+  a.o_deliver[h] = r.deliver;
+  a.o_drop[h] = r.drop;
+  a.o_arrival[h] = r.arrival;
+  a.o_ctr[h] = r.ctr;
 }
 
 }  // namespace
@@ -101,12 +80,22 @@ extern "C" int link_send(const void* mask, const void* dst, const void* now,
                          const void* ctr, long long bootstrap_end,
                          void* o_deliver, void* o_drop, void* o_arrival,
                          void* o_ctr, int H, void* stream) {
-  Args a{(const bool*)mask, (const int*)dst, (const long long*)now,
-         (const bool*)control, (const int*)vertex, (const int*)vtab,
-         (const long long*)lat_vv, (const float*)rel_vv,
-         (const long long*)keys, (const long long*)ctr, (bool*)o_deliver,
-         (bool*)o_drop, (long long*)o_arrival, (long long*)o_ctr,
-         bootstrap_end, now_stride, control_stride, H, U, T};
+  Args a{(const bool*)mask,
+         (const int*)dst,
+         (const long long*)now,
+         (const bool*)control,
+         {(const int*)vertex, (const int*)vtab, (const long long*)lat_vv,
+          (const float*)rel_vv, U, T},
+         (const long long*)keys,
+         (const long long*)ctr,
+         (bool*)o_deliver,
+         (bool*)o_drop,
+         (long long*)o_arrival,
+         (long long*)o_ctr,
+         bootstrap_end,
+         now_stride,
+         control_stride,
+         H};
   if (H > 0) {
     link_send_kernel<<<(H + kThreads - 1) / kThreads, kThreads, 0,
                        (cudaStream_t)stream>>>(a);

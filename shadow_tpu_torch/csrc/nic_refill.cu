@@ -13,23 +13,18 @@
 // lane whose host has no real event carries now = NEVER, where the
 // product overflows: JAX's int64 arithmetic wraps, so the kernel computes
 // it in uint64 (signed overflow is undefined in C++), and the mask select
-// comes after, as in JAX.
+// comes after, as in JAX. The refill itself is nic_common.cuh's, which
+// nic_tx, nic_rx and nic_gate share.
 //
 // Bound: bytes: five int64 inputs, the mask and two int64 outputs a host.
 // Design: one thread a host; `now` may be one value broadcast to every
 // host (stride 0), as the bulk gate passes the window start.
 
-#include <cuda_runtime.h>
+#include "nic_common.cuh"
 
 namespace {
 
-constexpr long long kRefillNs = 1000000LL;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ long long floordiv(long long a, long long b) {
-  const long long q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
 
 __global__ void __launch_bounds__(kThreads) nic_refill_kernel(
     const long long* __restrict__ rem, const long long* __restrict__ tick,
@@ -40,16 +35,9 @@ __global__ void __launch_bounds__(kThreads) nic_refill_kernel(
   const int h = blockIdx.x * kThreads + threadIdx.x;
   if (h >= H) return;
   const long long r = rem[h], tk = tick[h];
-  const long long now_tick = floordiv(now[(long long)h * now_stride],
-                                      kRefillNs);
-  const unsigned long long gain =
-      ((unsigned long long)now_tick - (unsigned long long)tk) *
-      (unsigned long long)refill[h];
-  const long long sum = (long long)((unsigned long long)r + gain);
-  const long long c = cap[h];
-  long long nr = sum < c ? sum : c;
-  nr = now_tick > tk ? nr : r;
-  long long nt = tk > now_tick ? tk : now_tick;
+  long long nr, nt;
+  nic::refill(r, tk, refill[h], cap[h], now[(long long)h * now_stride], nr,
+              nt);
   if (mask != nullptr && !mask[h]) {
     nr = r;
     nt = tk;

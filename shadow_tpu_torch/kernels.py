@@ -1,7 +1,7 @@
 """The window step's hand-written CUDA kernels, their plain PyTorch
 versions, and the build and ctypes binding.
 
-Fifteen kernels carry the window step on the card (sources under
+Eighteen kernels carry the window step on the card (sources under
 ``csrc/``, one shared library each). The PHOLD matrix path runs the
 first three:
 
@@ -55,6 +55,19 @@ The optimistic driver and the network stack's NIC and link run four more:
 * ``link_send`` (K15): ``net/link.py:send``'s path lookup, per-host
   threefry draw and loss roll.
 
+K13 and K15 remain for the pumps (and the app's own ``link.send``). The
+network stack's busiest calls fold them into the launch that consumes
+their result, three kernels with out-of-place results packed in one
+allocation:
+
+* ``nic_tx`` (K16): the direct send of ``NetStack._tx`` — the tx refill,
+  admission, charge and counters, and ``link_send``'s roll of the remote
+  packets, advancing ``link.send``'s four counters.
+* ``nic_rx`` (K17): the admission of ``NetStack.on_pkt_deliver`` — the rx
+  refill, the direct test, the charge and the zero-sojourn CoDel reset.
+* ``nic_gate`` (K18): ``NetStack.bulk_gate`` — both refills to the window
+  start, the budgets and the gate.
+
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no fallback from one to the
 other. Five kernels write into tensors they are given: ``loop_route``
@@ -80,6 +93,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 from dataclasses import dataclass, field
@@ -197,10 +211,19 @@ LINK_SEND = Kernel(
      _P, _P, _P, _P,  # outputs
      _I, _P),
 )
+# the NIC's admission kernels take their arguments packed in one host
+# array of int64 (``_PACK``: pointers, strides, sizes; the C entry names
+# them in order) and the stream: one ctypes argument costs more than
+# packing one value
+NIC_TX = Kernel("nic_tx", (ctypes.c_char_p, _P))
+NIC_RX = Kernel("nic_rx", (ctypes.c_char_p, _P))
+NIC_GATE = Kernel("nic_gate", (ctypes.c_char_p, _P))
+_PACK = {"nic_tx": struct.Struct("<30q"), "nic_rx": struct.Struct("<19q"),
+         "nic_gate": struct.Struct("<18q")}
 KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
            LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
            TCP_REORDER, TCP_OUT, SPEC_CHECK, NIC_REFILL, SEND_DEQUEUE,
-           LINK_SEND)
+           LINK_SEND, NIC_TX, NIC_RX, NIC_GATE)
 
 
 def reset_launches() -> None:
@@ -320,7 +343,10 @@ def _check(t: torch.Tensor, dtype, shape, name: str) -> int:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s card (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    making the Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 # ---------------------------------------------------------------------------
@@ -1855,12 +1881,44 @@ def spec_check(t, dst, src, done_t) -> torch.Tensor:
 def _per_host(t: torch.Tensor, H: int, dtype, name: str):
     """(pointer, stride) of a per-host input that may be one value
     broadcast to every host (a 0-d tensor or a stride-0 expand)."""
-    t = t.expand(H)
-    if t.stride(0) not in (0, 1):
-        t = t.contiguous()
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: want {dtype}, got {t.dtype}")
+    if t.dtype is not dtype or not t.is_cuda:
+        raise ValueError(f"{name}: want {dtype} on the card, got {t.dtype} "
+                         f"on {t.device}")
+    if t.dim() == 0:
+        return t.data_ptr(), 0
+    if t.shape != (H,) or t.stride(0) > 1:
+        t = t.expand(H)
+        if t.stride(0) not in (0, 1):
+            t = t.contiguous()
     return t.data_ptr(), t.stride(0)
+
+
+def _ptrs(dtype, *ts: torch.Tensor) -> list:
+    """The data pointers of inputs on the card that a kernel reads as flat
+    arrays of ``dtype``; raises on another type or device. The NIC's
+    admission wrappers check no more: their kernels write only their own
+    output, so no input can make them write out of bounds, and each check
+    costs host time on every call."""
+    ptrs = []
+    for t in ts:
+        if t.dtype is not dtype or not t.is_cuda:
+            raise ValueError(f"want {dtype} on the card, got {t.dtype} on "
+                             f"{t.device}")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def _payload(payload: torch.Tensor, H: int):
+    """(pointer, row stride) of [H, P] int32 packet words whose length
+    word the kernel reads; rows may be strided, words not."""
+    if (payload.dtype is not torch.int32 or payload.shape[-1] <= W_LEN
+            or not payload.is_cuda):
+        raise ValueError(f"payload: want int32 [{H}, > {W_LEN}] on the "
+                         f"card, got {payload.dtype} "
+                         f"{tuple(payload.shape)} on {payload.device}")
+    if payload.stride(1) != 1:
+        payload = payload.contiguous()
+    return payload.data_ptr(), payload.stride(0)
 
 
 # ---------------------------------------------------------------------------
@@ -2046,6 +2104,232 @@ def link_send(mask, dst, now, control, vertex, vertex_g, latency_vv,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K16 nic_tx, K17 nic_rx, K18 nic_gate: the NIC's admission, each the
+# refill (K13's) folded into the launch that consumes it
+# ---------------------------------------------------------------------------
+
+
+class TxOut(NamedTuple):
+    """The direct send of every host (``nic_tx``), [H] each but ``counts``.
+    On the card every tensor is a view of one allocation."""
+
+    tx_rem: torch.Tensor  # int64
+    tx_tick: torch.Tensor  # int64
+    tx_packets: torch.Tensor  # int64
+    tx_bytes: torch.Tensor  # int64
+    arrival: torch.Tensor  # int64: now + path latency (as LinkOut's)
+    rng_counter: torch.Tensor  # int64 (uint32 values): advanced where rolled
+    # [4] int64: the counters ``TX_COUNTERS`` after the send
+    counters: torch.Tensor
+    direct: torch.Tensor  # bool: admitted onto the wire or loopback
+    deliver: torch.Tensor  # bool: remote, rolled and kept
+    drop: torch.Tensor  # bool: remote, rolled and lost
+    loopback: torch.Tensor  # bool: admitted to the host itself
+
+
+# the hosts nic_tx takes on the card: its sums count their blocks of 128
+# hosts in 12 bits, and its C entry refuses more (csrc/nic_tx.cu)
+NIC_TX_MAX_HOSTS = 4095 * 128
+# link.send's counters (``SimState.counters`` fields), which nic_tx
+# advances by its packets
+TX_COUNTERS = ("packets_sent", "packets_dropped_loss",
+               "packets_dropped_unreachable", "bytes_sent")
+
+
+def nic_tx_plain(mask, now, dst, queued, gid, tx_rem, tx_tick, tx_refill,
+                 tx_cap, tx_packets, tx_bytes, payload, vertex, vertex_g,
+                 latency_vv, reliability_vv, rng_keys, rng_counter, counters,
+                 *, bootstrap_end: int) -> TxOut:
+    """Plain version: the JAX package's ``NetStack._tx`` up to its
+    emissions, as the stack ran it before this kernel: the refill
+    (``nic_refill_plain``), admission, charge and tx counters, then
+    ``link_send_plain`` on the remote packets and ``link.send``'s sums
+    added to ``counters`` (the four 0-d ``TX_COUNTERS``)."""
+    tx_rem, tx_tick = nic_refill_plain(tx_rem, tx_tick, tx_refill, tx_cap,
+                                       now, mask)
+    size = wire_bytes(payload)
+    bootstrap = now < bootstrap_end
+    direct = mask & ~queued & (bootstrap | (tx_rem >= MTU))
+    tx_rem = torch.where(direct & ~bootstrap, tx_rem - size, tx_rem)
+    remote = direct & (dst != gid)
+    ls = link_send_plain(remote, dst, now, payload[:, W_LEN] == 0, vertex,
+                         vertex_g, latency_vv, reliability_vv, rng_keys,
+                         rng_counter, bootstrap_end=bootstrap_end)
+    sums = (remote.sum(), ls.drop.sum(),
+            (remote & ~(ls.deliver | ls.drop)).sum(),
+            torch.where(remote, size, 0).sum())
+    return TxOut(
+        tx_rem=tx_rem, tx_tick=tx_tick,
+        tx_packets=tx_packets + direct.to(torch.int64),
+        tx_bytes=tx_bytes + torch.where(direct, size, 0),
+        arrival=ls.arrival, rng_counter=ls.rng_counter,
+        counters=torch.stack([c + n for c, n in zip(counters, sums)]),
+        direct=direct, deliver=ls.deliver, drop=ls.drop,
+        loopback=direct & (dst == gid))
+
+
+def _packed(H: int, n64: int, n_extra: int, nbool: int, device):
+    """One int64 allocation for ``n64`` int64 rows [H], ``n_extra`` int64
+    values and ``nbool`` bool rows [H], in that order."""
+    return torch.empty(n64 * H + n_extra + (nbool * H + 7) // 8,
+                       dtype=torch.int64, device=device)
+
+
+def _rows(buf: torch.Tensor, H: int, n64: int, n_extra: int, nbool: int):
+    """The views of ``_packed``'s parts: (int64 rows, extra values, bool
+    rows)."""
+    tail = buf.numel() - n64 * H - n_extra
+    *rows, extra, rest = buf.split_with_sizes([H] * n64 + [n_extra, tail])
+    flags = rest.view(torch.bool).split_with_sizes(
+        [H] * nbool + [8 * tail - nbool * H])
+    return rows, extra, flags[:nbool]
+
+
+def nic_tx(mask, now, dst, queued, gid, tx_rem, tx_tick, tx_refill, tx_cap,
+           tx_packets, tx_bytes, payload, vertex, vertex_g, latency_vv,
+           reliability_vv, rng_keys, rng_counter, counters, *,
+           bootstrap_end: int) -> TxOut:
+    """The direct send of each masked host's packet (``payload`` [H, P],
+    to ``dst``): when its NIC queue is empty (``queued`` false) and its
+    refilled tx bucket holds an MTU (or in bootstrap), charge it, count
+    it, and roll the remote ones over their path as ``link_send`` does,
+    advancing ``counters`` (the four 0-d ``TX_COUNTERS``). ``now`` and
+    ``dst`` are [H] or one value for every host. On the card it takes at
+    most ``NIC_TX_MAX_HOSTS`` hosts and raises on more."""
+    if not mask.is_cuda:
+        return nic_tx_plain(mask, now, dst, queued, gid, tx_rem, tx_tick,
+                            tx_refill, tx_cap, tx_packets, tx_bytes, payload,
+                            vertex, vertex_g, latency_vv, reliability_vv,
+                            rng_keys, rng_counter, counters,
+                            bootstrap_end=bootstrap_end)
+    H, U = mask.shape[0], latency_vv.shape[0]
+    table = vertex if vertex_g is None else vertex_g
+    I64, I32, B = torch.int64, torch.int32, torch.bool
+    out = _packed(H, 6, 4, 4, mask.device)
+    _launch(NIC_TX, _PACK["nic_tx"].pack(
+        *_ptrs(B, mask), *_per_host(now, H, I64, "now"),
+        *_per_host(dst, H, I32, "dst"), *_ptrs(B, queued),
+        *_ptrs(I32, gid),
+        *_ptrs(I64, tx_rem, tx_tick, tx_refill, tx_cap, tx_packets,
+               tx_bytes),
+        *_payload(payload, H), *_ptrs(I32, vertex, table), table.numel(),
+        *_ptrs(I64, latency_vv), *_ptrs(torch.float32, reliability_vv), U,
+        *_ptrs(I64, rng_keys, rng_counter, *counters), int(bootstrap_end),
+        out.data_ptr(), H), _stream(mask))
+    rows, totals, flags = _rows(out, H, 6, 4, 4)
+    return TxOut(*rows, totals, *flags)
+
+
+class RxOut(NamedTuple):
+    """The admission of every host's arrival (``nic_rx``), [H] each. On
+    the card every tensor is a view of one allocation."""
+
+    rx_rem: torch.Tensor  # int64
+    rx_tick: torch.Tensor  # int64
+    interval_expire: torch.Tensor  # int64: 0 where delivered directly
+    drop_mode: torch.Tensor  # bool: false where delivered directly
+    queued: torch.Tensor  # bool: remote, not direct: to the router ring
+    no_room: torch.Tensor  # bool: queued to a full ring
+    local: torch.Tensor  # bool: delivered now (loopback or direct)
+
+
+def nic_rx_plain(mask, src, gid, now, rx_rem, rx_tick, rx_refill, rx_cap,
+                 q_head, q_tail, payload, interval_expire, drop_mode, *,
+                 slots: int, bootstrap_end: int) -> RxOut:
+    """Plain version: the JAX package's ``NetStack.on_pkt_deliver`` ahead
+    of its enqueue and delivery, as the stack ran it before this kernel:
+    the refill (``nic_refill_plain``) of the remote arrivals, the direct
+    test against the router ring (``slots`` deep), the charge and the
+    zero-sojourn CoDel reset."""
+    loopback = mask & (src == gid)
+    remote = mask & (src != gid)
+    rx_rem, rx_tick = nic_refill_plain(rx_rem, rx_tick, rx_refill, rx_cap,
+                                       now, remote)
+    bootstrap = now < bootstrap_end
+    direct = (remote & ~(q_head < q_tail)
+              & (bootstrap | (rx_rem >= MTU)))
+    rx_rem = torch.where(direct & ~bootstrap, rx_rem - wire_bytes(payload),
+                         rx_rem)
+    queued = remote & ~direct
+    return RxOut(
+        rx_rem=rx_rem, rx_tick=rx_tick,
+        interval_expire=torch.where(direct, 0, interval_expire),
+        drop_mode=torch.where(direct, False, drop_mode), queued=queued,
+        no_room=queued & ~((q_tail - q_head) < slots),
+        local=loopback | direct)
+
+
+def nic_rx(mask, src, gid, now, rx_rem, rx_tick, rx_refill, rx_cap, q_head,
+           q_tail, payload, interval_expire, drop_mode, *, slots: int,
+           bootstrap_end: int) -> RxOut:
+    """Each masked host's arrival from ``src``: loopback is delivered; a
+    remote packet is delivered now when the router ring (``q_head``,
+    ``q_tail``, ``slots`` deep) is empty and the refilled rx bucket holds
+    an MTU (or in bootstrap), and is charged; else it is queued. ``now``
+    is [H] or one value for every host."""
+    if not mask.is_cuda:
+        return nic_rx_plain(mask, src, gid, now, rx_rem, rx_tick, rx_refill,
+                            rx_cap, q_head, q_tail, payload, interval_expire,
+                            drop_mode, slots=slots,
+                            bootstrap_end=bootstrap_end)
+    H = mask.shape[0]
+    I64, I32 = torch.int64, torch.int32
+    out = _packed(H, 3, 0, 4, mask.device)
+    _launch(NIC_RX, _PACK["nic_rx"].pack(
+        *_ptrs(torch.bool, mask), *_ptrs(I32, src, gid),
+        *_per_host(now, H, I64, "now"),
+        *_ptrs(I64, rx_rem, rx_tick, rx_refill, rx_cap),
+        *_ptrs(I32, q_head, q_tail), int(slots), *_payload(payload, H),
+        *_ptrs(I64, interval_expire), *_ptrs(torch.bool, drop_mode),
+        int(bootstrap_end), out.data_ptr(), H), _stream(mask))
+    rows, _, flags = _rows(out, H, 3, 0, 4)
+    return RxOut(*rows, *flags)
+
+
+def nic_gate_plain(rx_rem, rx_tick, rx_refill, rx_cap, tx_rem, tx_tick,
+                   tx_refill, tx_cap, r_head, r_tail, queued, recv_pending,
+                   send_pending, *, win_start: int, free: bool,
+                   G: int) -> torch.Tensor:
+    """Plain version: the JAX package's ``NetStack.bulk_gate``, as the
+    stack ran it before this kernel (two ``nic_refill_plain`` calls to the
+    window start). ``//`` floors on token debt, as JAX's does."""
+    ws = torch.tensor(int(win_start), dtype=torch.int64,
+                      device=rx_rem.device)
+    rx, _ = nic_refill_plain(rx_rem, rx_tick, rx_refill, rx_cap, ws)
+    tx, _ = nic_refill_plain(tx_rem, tx_tick, tx_refill, tx_cap, ws)
+    if free:
+        # the whole window inside bootstrap: tokens are not charged
+        rx_ev, tx_ev = torch.full_like(rx, G), torch.full_like(tx, G)
+    else:
+        rx_ev, tx_ev = rx // MTU, tx // MTU
+    quiet = ~(r_head < r_tail) & ~queued & ~recv_pending & ~send_pending
+    cap = torch.minimum(rx_ev, tx_ev) - 1  # the head uses one budget
+    return torch.where(quiet, cap.clamp(0, G - 1), 0).to(torch.int32)
+
+
+def nic_gate(rx_rem, rx_tick, rx_refill, rx_cap, tx_rem, tx_tick, tx_refill,
+             tx_cap, r_head, r_tail, queued, recv_pending, send_pending, *,
+             win_start: int, free: bool, G: int) -> torch.Tensor:
+    """[H] int32: how many extra consecutive arrivals each host may batch
+    in a micro-step from ``win_start``: both buckets refilled to it (and
+    not written back), each arrival and reply budgeted an MTU (``G`` each
+    where the window is ``free``, wholly inside bootstrap), capped at
+    ``G - 1``; 0 wherever the router ring is nonempty, the NIC queue
+    holds packets (``queued``) or a pump is armed."""
+    args = (rx_rem, rx_tick, rx_refill, rx_cap, tx_rem, tx_tick, tx_refill,
+            tx_cap, r_head, r_tail, queued, recv_pending, send_pending)
+    if not rx_rem.is_cuda:
+        return nic_gate_plain(*args, win_start=win_start, free=free, G=G)
+    H = rx_rem.shape[0]
+    out = torch.empty(H, dtype=torch.int32, device=rx_rem.device)
+    _launch(NIC_GATE, _PACK["nic_gate"].pack(
+        *_ptrs(torch.int64, *args[:8]), *_ptrs(torch.int32, r_head, r_tail),
+        *_ptrs(torch.bool, *args[10:]), int(win_start), int(bool(free)),
+        int(G), out.data_ptr(), H), _stream(rx_rem))
+    return out
+
+
 class WindowOps(NamedTuple):
     """The window-step functions the engine and the network stack call."""
 
@@ -2064,17 +2348,22 @@ class WindowOps(NamedTuple):
     nic_refill: object
     send_dequeue: object
     link_send: object
+    nic_tx: object
+    nic_rx: object
+    nic_gate: object
 
 
 # the wrappers: the kernels on the card, the plain versions on the CPU
 KERNEL_OPS = WindowOps(extract_slots, phold_forward, audit_commit,
                        loop_select, loop_route, codel_dequeue, ring_append,
                        tcp_demux, tcp_ack, tcp_reorder, tcp_out, spec_check,
-                       nic_refill, send_dequeue, link_send)
+                       nic_refill, send_dequeue, link_send, nic_tx, nic_rx,
+                       nic_gate)
 # the plain versions on any device (the on-card comparison run)
 PLAIN_OPS = WindowOps(extract_slots_plain, phold_forward_plain,
                       audit_commit_plain, loop_select_plain, loop_route_plain,
                       codel_dequeue_plain, ring_append_plain,
                       tcp_demux_plain, tcp_ack_plain, tcp_reorder_plain,
                       tcp_out_plain, spec_check_plain, nic_refill_plain,
-                      send_dequeue_plain, link_send_plain)
+                      send_dequeue_plain, link_send_plain, nic_tx_plain,
+                      nic_rx_plain, nic_gate_plain)

@@ -3,7 +3,10 @@
 One vectorized step over every sending host: the kernel ``link_send``
 looks up each path's latency and reliability and rolls the loss with
 one per-host draw (none during bootstrap and none for control packets);
-the step then emits one delivery per kept packet and adds the counters.
+the step then emits one delivery per kept packet (``finish``) and adds
+the counters. The stack's direct send rolls its packets inside the
+kernel ``nic_tx`` (the same lookup and roll, and the counters) and calls
+``finish`` alone.
 """
 
 from __future__ import annotations
@@ -35,10 +38,7 @@ def send(state: SimState, emitter: Emitter, mask, dst_host, now, kind,
         params.vertex_g, params.latency_vv, params.reliability_vv,
         state.rng_keys, h.rng_counter, bootstrap_end=params.bootstrap_end,
     )
-    state = state.with_host(rng_counter=out.rng_counter)
-    emitter.emit(out.deliver, out.arrival, dst_host, kind, payload)
-    state = pds_mod.record_drop(state, out.drop, payload,
-                                pkt.PDS_DROPPED_LOSS, now)
+    state = finish(state, emitter, out, dst_host, now, kind, payload)
     return state.add_counters(
         packets_sent=mask.sum(),
         packets_dropped_loss=out.drop.sum(),
@@ -46,3 +46,14 @@ def send(state: SimState, emitter: Emitter, mask, dst_host, now, kind,
         packets_dropped_unreachable=(mask & ~(out.deliver | out.drop)).sum(),
         bytes_sent=torch.where(mask, size, 0).sum(),
     )
+
+
+def finish(state: SimState, emitter: Emitter, out, dst_host, now, kind,
+           payload):
+    """A roll's (``out``: ``kernels.LinkOut`` or ``kernels.TxOut``)
+    delivery emission, drop registers and draw counters; the caller adds
+    its packets to the counters."""
+    state = state.with_host(rng_counter=out.rng_counter)
+    emitter.emit(out.deliver, out.arrival, dst_host, kind, payload)
+    return pds_mod.record_drop(state, out.drop, payload,
+                               pkt.PDS_DROPPED_LOSS, now)

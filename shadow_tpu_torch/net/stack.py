@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core.engine import Emitter, EventView
 from shadow_tpu_torch.core.state import (
     KIND_NIC_REFILL,
@@ -135,28 +136,30 @@ class NetStack:
                                 device=hosts.device).expand(H)
         direct = torch.zeros(H, dtype=torch.bool, device=hosts.device)
         if params is not None:
-            queued_any = self.disc.nonempty(state)
-            tx_rem, tx_tick = emitter.ops.nic_refill(
-                n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, now64, mask)
-            n = n.replace(tx_rem=tx_rem, tx_tick=tx_tick)
-            size = pkt.total_bytes(payload)
-            bootstrap = now64 < params.bootstrap_end
-            direct = mask & ~queued_any & (bootstrap | (n.tx_rem >= pkt.MTU))
-            n = n.replace(tx_rem=torch.where(direct & ~bootstrap,
-                                             n.tx_rem - size, n.tx_rem))
-            n = nic.count_tx(n, direct, size)
-            state = state.with_sub(nic.SUB, n)
-            state = self.disc.note_direct(state, direct, payload)
-            remote = direct & (dst_host != hosts)
+            # the refill, admission, charge, tx counters, the remote
+            # packets' roll and link.send's counters in one launch (the
+            # kernel nic_tx)
+            h = state.host
+            dst32 = dst_host.to(torch.int32)
+            o = emitter.ops.nic_tx(
+                mask, now64, dst32, self.disc.nonempty(state), hosts,
+                n.tx_rem, n.tx_tick, n.tx_refill, n.tx_cap, n.tx_packets,
+                n.tx_bytes, payload, h.vertex, params.vertex_g,
+                params.latency_vv, params.reliability_vv, state.rng_keys,
+                h.rng_counter, [getattr(state.counters, c)
+                                for c in kernels.TX_COUNTERS],
+                bootstrap_end=params.bootstrap_end)
+            direct = o.direct
+            n = n.replace(tx_rem=o.tx_rem, tx_tick=o.tx_tick,
+                          tx_packets=o.tx_packets, tx_bytes=o.tx_bytes)
+            state = self.disc.note_direct(state.with_sub(nic.SUB, n), direct,
+                                          payload)
             wire = pkt.stamp(payload, direct, pkt.PDS_SENT)
-            state = link.send(
-                state, emitter, remote, dst_host.to(torch.int32), now64,
-                KIND_PKT_DELIVER, wire, params,
-                torch.where(remote, size, 0),
-                control_mask=payload[:, pkt.W_LEN] == 0,
-            )
-            lb = direct & (dst_host == hosts)
-            emitter.emit(lb, now64, hosts, KIND_PKT_DELIVER, wire)
+            state = link.finish(state, emitter, o, dst32, now64,
+                                KIND_PKT_DELIVER, wire)
+            state = state.with_counters(
+                **dict(zip(kernels.TX_COUNTERS, o.counters.unbind())))
+            emitter.emit(o.loopback, now64, hosts, KIND_PKT_DELIVER, wire)
 
         enq = mask & ~direct
         state, ok = self.disc.enqueue(
@@ -237,37 +240,29 @@ class NetStack:
         straight to the socket."""
         hosts = state.host.gid
         now = ev.time
-        loopback = ev.mask & (ev.src == hosts)
-        remote = ev.mask & (ev.src != hosts)
-
         n = state.subs[nic.SUB]
         r = state.subs[codel.SUB]
-        rx_rem, rx_tick = emitter.ops.nic_refill(
-            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, now, remote)
-        n = n.replace(rx_rem=rx_rem, rx_tick=rx_tick)
-        bootstrap = now < params.bootstrap_end
-        size = pkt.total_bytes(ev.payload)
-        direct = (remote & ~codel.nonempty(r)
-                  & (bootstrap | (n.rx_rem >= pkt.MTU)))
-        n = n.replace(rx_rem=torch.where(direct & ~bootstrap,
-                                         n.rx_rem - size, n.rx_rem))
-        # zero-sojourn dequeue of a good packet: interval reset, drop-mode
-        # exit
-        r = r.replace(
-            interval_expire=torch.where(direct, 0, r.interval_expire),
-            drop_mode=torch.where(direct, False, r.drop_mode),
-        )
-        queued = remote & ~direct
-        no_room = queued & ~((r.q_tail - r.q_head) < r.q_src.shape[1])
-        state = pds_mod.record_drop(state, no_room, ev.payload,
+        # the refill, direct test, charge and zero-sojourn CoDel reset (a
+        # good packet: interval reset, drop-mode exit) in one launch (the
+        # kernel nic_rx)
+        o = emitter.ops.nic_rx(
+            ev.mask, ev.src, hosts, now, n.rx_rem, n.rx_tick, n.rx_refill,
+            n.rx_cap, r.q_head, r.q_tail, ev.payload, r.interval_expire,
+            r.drop_mode, slots=r.q_src.shape[1],
+            bootstrap_end=params.bootstrap_end)
+        n = n.replace(rx_rem=o.rx_rem, rx_tick=o.rx_tick)
+        r = r.replace(interval_expire=o.interval_expire,
+                      drop_mode=o.drop_mode)
+        queued = o.queued
+        state = pds_mod.record_drop(state, o.no_room, ev.payload,
                                     pkt.PDS_DROPPED_OVERFLOW, now)
         r = codel.enqueue(
             r, queued,
             pkt.stamp(ev.payload, queued, pkt.PDS_ROUTER_ENQUEUED),
             ev.src, now, emitter.ops)
         state = state.with_sub(codel.SUB, r).with_sub(nic.SUB, n)
-        state = self._deliver_local(state, loopback | direct, ev.src,
-                                    ev.payload, emitter, now, params)
+        state = self._deliver_local(state, o.local, ev.src, ev.payload,
+                                    emitter, now, params)
         n = state.subs[nic.SUB]
         need = queued & ~n.recv_pending
         emitter.emit(need, now, hosts, KIND_NIC_RECV,
@@ -375,24 +370,13 @@ class NetStack:
         JAX's does."""
         n = state.subs[nic.SUB]
         r = state.subs[codel.SUB]
-        dev = n.rx_rem.device
-        ws = torch.tensor(int(win_start), dtype=torch.int64, device=dev)
-        G = self.deliver_batch
-        rx_rem, _ = ops.nic_refill(n.rx_rem, n.rx_tick, n.rx_refill,
-                                   n.rx_cap, ws)
-        tx_rem, _ = ops.nic_refill(n.tx_rem, n.tx_tick, n.tx_refill,
-                                   n.tx_cap, ws)
-        if int(win_end) <= int(params.bootstrap_end):
-            # the whole window inside bootstrap: tokens are not charged
-            rx_ev = torch.full_like(rx_rem, G)
-            tx_ev = torch.full_like(tx_rem, G)
-        else:
-            rx_ev = rx_rem // pkt.MTU
-            tx_ev = tx_rem // pkt.MTU
-        quiet = (~codel.nonempty(r) & ~self.disc.nonempty(state)
-                 & ~n.recv_pending & ~n.send_pending)
-        cap = torch.minimum(rx_ev, tx_ev) - 1  # the head uses one budget
-        return torch.where(quiet, cap.clamp(0, G - 1), 0).to(torch.int32)
+        return ops.nic_gate(
+            n.rx_rem, n.rx_tick, n.rx_refill, n.rx_cap, n.tx_rem, n.tx_tick,
+            n.tx_refill, n.tx_cap, r.q_head, r.q_tail,
+            self.disc.nonempty(state), n.recv_pending, n.send_pending,
+            win_start=int(win_start),
+            free=int(win_end) <= int(params.bootstrap_end),
+            G=self.deliver_batch)
 
     def handlers(self) -> dict:
         h = {

@@ -24,7 +24,12 @@ optimistic driver's four kernels take the synthetic tables of
 ``chip_smoke.synthetic_*`` (violations and filler destinations, idle
 gaps and NEVER lanes, wrapped ring heads, unreachable pairs and control
 packets) and whole optimistic runs that roll back on both paths, one of
-them after appending to both rings.
+them after appending to both rings; the NIC's admission kernels
+(``nic_tx``, ``nic_rx``, ``nic_gate``) take ``chip_smoke.synthetic_nic_*``
+tables (token debt, NEVER lanes, both sides of the end of bootstrap,
+queued NICs and full or wrapped router rings, loopback, unreachable and
+lossy paths, control packets, one ``now`` or ``dst`` for every host, a
+window wholly inside bootstrap), one launch a call.
 
 Marked ``cuda``: the card decides inside the fixture, and the tests skip
 where there is none. This file imports neither jax nor the JAX package,
@@ -584,7 +589,7 @@ def test_flood_through_kernels_matches_plain_run(card):
     launches = {k.name: k.launches for k in kernels.KERNELS}
     for name in ("extract_slots", "audit_commit", "loop_select",
                  "loop_route", "codel_dequeue", "ring_append", "spec_check",
-                 "nic_refill", "link_send"):
+                 "nic_refill", "nic_tx", "nic_rx", "nic_gate"):
         assert launches[name] > 0, name
     assert launches["phold_forward"] == 0
     assert b.run() == wa
@@ -790,7 +795,8 @@ def test_tcp_run_through_kernels_matches_plain_run(card):
     for name in ("extract_slots", "audit_commit", "loop_select",
                  "loop_route", "codel_dequeue", "ring_append", "tcp_demux",
                  "tcp_ack", "tcp_reorder", "tcp_out", "spec_check",
-                 "nic_refill", "send_dequeue", "link_send"):
+                 "nic_refill", "send_dequeue", "link_send", "nic_tx",
+                 "nic_rx"):
         assert launches[name] > 0, name
     assert b.run() == wa
     assert {k.name: k.launches for k in kernels.KERNELS} == launches
@@ -872,6 +878,94 @@ def test_link_send_matches_plain(card, variant):
     assert got.deliver.any() and got.drop.any()
     unreachable = args[0] & ~(got.deliver | got.drop)
     assert bool(unreachable.any()) == (variant in ("table", "own_vertex"))
+
+
+@pytest.mark.parametrize("variant", ["table", "own_vertex", "single", "now",
+                                     "dst", "control"])
+def test_nic_tx_matches_plain(card, variant):
+    """The direct send: debt, NEVER lanes, bootstrap, queued NICs,
+    loopback, unreachable and lossy paths; one ``now`` or ``dst`` for
+    every host; every packet a control packet."""
+    from chip_smoke import synthetic_nic_tx
+
+    H = 4099
+    args, kw = synthetic_nic_tx(H, card, seed=len(variant))
+    args = list(args)
+    if variant == "own_vertex":
+        args[13] = None  # the hosts' own vertex column
+    if variant == "single":
+        args[14] = args[14][:1, :1].contiguous()
+        args[15] = torch.full((1, 1), 0.5, device=card)
+    if variant == "now":
+        args[1] = torch.tensor(kw["bootstrap_end"] + 5, device=card)
+    if variant == "dst":
+        args[2] = torch.tensor(7, dtype=torch.int32, device=card).expand(H)
+    if variant == "control":
+        args[11] = args[11].clone()
+        args[11][:, 3] = 0
+    n = kernels.NIC_TX.launches
+    got = kernels.nic_tx(*args, **kw)
+    assert kernels.NIC_TX.launches == n + 1
+    want = kernels.nic_tx_plain(*args, **kw)
+    _same(got, want)
+    assert got.direct.any() and not got.direct.all()
+    assert got.deliver.any() and got.loopback.any()
+    assert bool(got.drop.any()) == (variant != "control")
+    unreachable = got.counters[2] > args[18][2]
+    assert bool(unreachable) == (variant in ("table", "own_vertex", "now",
+                                             "control"))
+
+
+def test_nic_tx_refuses_more_blocks_than_its_sums_count(card):
+    """nic_tx counts the blocks that added to each sum in 12 bits of the
+    sum's word: one host more than ``NIC_TX_MAX_HOSTS`` (4,096 blocks)
+    is refused with nothing launched, and at the limit (4,095 blocks)
+    the counters are exact."""
+    from chip_smoke import synthetic_nic_tx
+
+    H = kernels.NIC_TX_MAX_HOSTS
+    args, kw = synthetic_nic_tx(H + 1, card)
+    n = kernels.NIC_TX.launches
+    with pytest.raises(RuntimeError):
+        kernels.nic_tx(*args, **kw)
+    assert kernels.NIC_TX.launches == n
+    args, kw = synthetic_nic_tx(H, card)
+    got = kernels.nic_tx(*args, **kw)
+    assert kernels.NIC_TX.launches == n + 1
+    _same(got, kernels.nic_tx_plain(*args, **kw))
+    assert bool((got.counters > torch.stack(args[18])).all())
+
+
+@pytest.mark.parametrize("variant", ["rings", "now", "seed"])
+def test_nic_rx_matches_plain(card, variant):
+    """The arrivals' admission: loopback, NEVER lanes, bootstrap, debt,
+    router rings empty, full and wrapped; one ``now`` for every host."""
+    from chip_smoke import synthetic_nic_rx
+
+    args, kw = synthetic_nic_rx(3001, card, seed=7 if variant == "seed"
+                                else 43)
+    args = list(args)
+    if variant == "now":
+        args[3] = torch.tensor(kw["bootstrap_end"] + 5, device=card)
+    n = kernels.NIC_RX.launches
+    got = kernels.nic_rx(*args, **kw)
+    assert kernels.NIC_RX.launches == n + 1
+    _same(got, kernels.nic_rx_plain(*args, **kw))
+    assert got.local.any() and got.queued.any() and got.no_room.any()
+
+
+@pytest.mark.parametrize("free,G", [(False, 8), (True, 8), (False, 2)])
+def test_nic_gate_matches_plain(card, free, G):
+    """The bulk gate: debt, full buckets, queues and armed pumps; a
+    window wholly inside bootstrap."""
+    from chip_smoke import synthetic_nic_gate
+
+    args, kw = synthetic_nic_gate(5003, card, free=free, G=G)
+    n = kernels.NIC_GATE.launches
+    got = kernels.nic_gate(*args, **kw)
+    assert kernels.NIC_GATE.launches == n + 1
+    _same(got, kernels.nic_gate_plain(*args, **kw))
+    assert (got == G - 1).any() and (got == 0).any()
 
 
 @pytest.mark.parametrize("name", ["mixed_phold", "mixed_flood"])
