@@ -25,15 +25,23 @@ power limit:
    nvcc (one process per source, all at once) and print ptxas's register
    and shared-memory report, and for ``loop_select``, ``loop_route``,
    ``ring_append``, ``tcp_ack``, ``tcp_reorder``, ``tcp_out``, ``nic_tx``,
-   ``nic_rx`` and ``nic_gate`` each entry function's registers, shared
+   ``nic_rx``, ``nic_gate``, ``extract_slots`` and ``phold_forward``
+   each entry function's registers, shared
    memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
    graph), its issue time (the same calls back to back from Python, the
    median of five rounds) and
-   the plain version's time (CUDA events, warmed) beside the bound; and
-   the window step's parts, timed (in phases 6, 9 and 12 five kernels
+   the plain version's time (CUDA events, warmed) beside the bound; what
+   ``extract_slots`` replaced (the parent's stable sort by slot and its
+   gathers and cats), timed on the same rows, and the device launches of
+   one ``dense_extract``, this tree's and the parent's, counted with
+   ``torch.profiler``; and the window step's parts, timed, with what
+   ``dense_extract`` costs after ``window_keys``: ``extract_slots``'
+   issue time under ``inference_mode``, as ``Simulation.run`` calls it
+   (in phases 6, 9
+   and 12 five kernels
    write into their arguments: ``loop_route`` its boxes, ``ring_append``
    the ring planes, ``tcp_ack``, ``tcp_reorder`` and ``tcp_out`` fields
    of the TCP table; each takes clones to compare, must return them, and
@@ -666,6 +674,12 @@ def per_host_bytes(t: torch.Tensor, H: int) -> int:
     return t.element_size() * H
 
 
+def flat_extract(out) -> list:
+    """The tensors of an extraction: the dense window's, then the
+    tail's."""
+    return [*out.dense, *out.tail]
+
+
 def max_abs_err(got, want) -> float:
     err = 0.0
     for g, w in zip(got, want):
@@ -712,11 +726,21 @@ def kernel_bound(name: str, args, kw, out):
     the engine's functional state makes are not counted. Operations: the
     32-bit integer work at the float32 peak."""
     if name == "extract_slots":
-        s_k1 = args[0]
-        N = s_k1.shape[0]
-        # read each sorted key, write its slot; a compare with the row
-        # before, the run start, the rank and the slot
-        return bound(nbytes(s_k1, out), 4 * N)
+        s_k1, perm, p_t = args[0], args[1], args[2]
+        H, Kc, PP = args[8], args[9], args[7].shape[1]
+        N, C = s_k1.shape[0], p_t.shape[0]
+        row = 8 + 3 * 4 + 8 * PP  # time, src, seq, kind, payload
+        # every pool row in the window lands in the dense block with a
+        # finite time, every filler there is NEVER
+        n_dense = int((out.dense.time != NEVER).sum())
+        # each sorted key and its source row; each pool row read once,
+        # its dst only where it goes to the tail (a dense row's host is
+        # its key), fillers made in registers; each dense row written,
+        # and each tail row with its dst. Operations: a row's compare
+        # with the row Kc before, the search over Kc keys, the place
+        ops = N * (4 + max(Kc - 1, 1).bit_length())
+        return bound(nbytes(s_k1, perm) + C * row + 4 * (C - n_dense)
+                     + H * Kc * row + C * (row + 4), ops)
     if name == "phold_forward":
         n_send = int(out.stats[:, 1].sum())
         H, K = args[0].shape
@@ -885,16 +909,19 @@ def phase_kernels(card: str) -> dict:
     H, K = sim.num_hosts, sim.K
     results = {}
 
-    # K3: extract_slots on the first sort's keys
-    s_k1, _ = engine.window_keys(st.pool, ws, we, H, K)
-    N = s_k1.shape[0]
-    want = kernels.extract_slots_plain(s_k1, H, K)
-    err = max_abs_err([kernels.extract_slots(s_k1, H, K)], [want])
+    # K3: extract_slots places the rows of the window's first sort
+    pool = st.pool
+    xargs = (*engine.window_keys(pool, ws, we, H, K), pool.time, pool.dst,
+             pool.src, pool.seq, pool.kind, pool.payload, H, K)
+    N = xargs[0].shape[0]
+    want = kernels.extract_slots_plain(*xargs)
+    err = max_abs_err(flat_extract(kernels.extract_slots(*xargs)),
+                      flat_extract(want))
     results["extract_slots"] = dict(
-        err=err, bound=kernel_bound("extract_slots", (s_k1, H, K), {}, want),
-        shape=f"N={N}",
-        **kernel_times(lambda: kernels.extract_slots(s_k1, H, K),
-                       lambda: kernels.extract_slots_plain(s_k1, H, K)),
+        err=err, bound=kernel_bound("extract_slots", xargs, {}, want),
+        shape=f"N={N} C={pool.capacity} Kc={K}",
+        **kernel_times(lambda: kernels.extract_slots(*xargs),
+                       lambda: kernels.extract_slots_plain(*xargs)),
     )
 
     # K1 / K2 on the window's dense matrix
@@ -951,25 +978,56 @@ def phase_kernels(card: str) -> dict:
         if r["err"] != 0:
             fail(f"{name} disagrees with its plain version on the card")
 
+    # what K3 replaced: the parent's ops after its slot kernel (the stable
+    # sort by slot, the gathers of perm and of the six columns from the
+    # pool and the fillers), timed on the same rows
+    slot = kernels.dense_slots(xargs[0], H, K)
+    parent = lambda: kernels.place_rows(slot, *xargs[1:])  # noqa: E731
+    extract = lambda: engine.dense_extract(pool, ws, we, H, K)  # noqa: E731
+    keys = lambda: engine.window_keys(pool, ws, we, H, K)  # noqa: E731
+    (n_keys, _), (n_parent, parent_dev), (n_now, _) = (
+        device_profile(f) for f in (keys, parent, extract))
+    r = results["extract_slots"]
+    print(f"[{card}] phase 3 extract_slots replaces the parent's placement "
+          f"ops (slot sort + gathers + cats): events_ms="
+          f"{time_ms(parent, 20):.6f} (20 calls back to back), device_ms="
+          f"{parent_dev:.6f} (one call's kernels and copies, profiled), "
+          f"against the kernel's device_ms={r['ms']:.6f} issue_ms="
+          f"{r['issue_ms']:.6f}", flush=True)
+    print(f"[{card}] phase 3 device launches of one dense_extract "
+          f"(torch.profiler: kernels, copies, sets): this tree {n_now} "
+          f"(window_keys {n_keys} + extract_slots {n_now - n_keys}); the "
+          f"parent {n_keys + n_parent + 1} (window_keys {n_keys}, its slot "
+          f"kernel 1 assumed, not profiled: one launch a call of its "
+          f"wrapper; the placement ops {n_parent})", flush=True)
+
     # the window step's parts, on the same window (no kernel count kept)
     tail_dense = engine.dense_extract(st.pool, ws, we, H, K)
     fw = kernels.phold_forward(*fargs, **fkw)
     parts = {
-        "window_keys (2 sorts + gathers)": lambda: engine.window_keys(
-            st.pool, ws, we, H, K),
-        "dense_extract (all of extract)": lambda: engine.dense_extract(
-            st.pool, ws, we, H, K),
+        "window_keys (2 sorts + gathers)": keys,
+        "dense_extract (all of extract)": extract,
         "phold_forward": lambda: kernels.phold_forward(*fargs, **fkw),
         "audit_commit": lambda: kernels.audit_commit(*cargs),
         "merge (1 sort + gathers)": lambda: engine.merge(
             tail_dense[1], fw, st.pool.capacity),
         f"torch.sort stable int64 N={N}": lambda: torch.sort(
-            s_k1, stable=True),
+            xargs[0], stable=True),
     }
     parts_ms = {k: time_ms(f, 20) for k, f in parts.items()}
+    # what dense_extract costs after its key sorts is one extract_slots
+    # call: its issue time on precomputed keys, under inference_mode as
+    # Simulation.run calls it (the parent's placement ops beside it)
+    with torch.inference_mode():
+        after = issue_times(lambda: kernels.extract_slots(*xargs))
+        before = issue_times(parent)
+    parts_ms["dense_extract after window_keys"] = after["issue_ms"]
     print(f"[{card}] phase 3 window breakdown (ms): "
-          + json.dumps({k: round(v, 6) for k, v in parts_ms.items()}),
-          flush=True)
+          + json.dumps({k: round(v, 6) for k, v in parts_ms.items()})
+          + f" (dense_extract after window_keys: extract_slots' issue "
+          f"time under inference_mode, rounds {issue_rounds(after)}; the "
+          f"parent's placement ops so timed {before['issue_ms']:.6f}, "
+          f"rounds {issue_rounds(before)})", flush=True)
     kernels.reset_launches()
     return results
 
@@ -1008,7 +1066,7 @@ def activity(name: str, args, out) -> int:
     """How much work a captured call did: the call phase 6 keeps is the
     busiest of the window."""
     if name == "extract_slots":
-        return int((out != args[0].shape[0]).sum())  # rows extracted
+        return int((out.dense.time != NEVER).sum())  # events extracted
     if name == "audit_commit":
         return int(out.n_valid.sum())  # events committed
     if name == "loop_select":
@@ -1278,13 +1336,7 @@ def profile_windows(card: str, sim, label: str, span: int,
         wall_prof = time.perf_counter() - t0
     if sim.audit_chain() != chain:
         fail(f"{label}: the rerun of the profiled windows differs")
-    rows = []  # kernels only: an operator's device time is its kernels'
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     ours = port_kernels(rows)
     n_dev = sum(r[2] for r in rows)
@@ -1303,6 +1355,35 @@ def profile_windows(card: str, sim, label: str, span: int,
               {k: [round(us, 1), n] for k, (us, n) in sorted(
                   ours.items(), key=lambda kv: -kv[1][0])}),
           flush=True)
+
+
+def device_rows(prof) -> list:
+    """(device us, name, launches) of each kernel, copy or set a profile
+    traced, the most time first (kernels only: an operator's device time
+    is its kernels')."""
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows
+
+
+def device_profile(fn) -> tuple:
+    """(device launches (kernels, copies, sets), their device ms) of one
+    call of fn, warmed, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(r[2] for r in rows), sum(r[0] for r in rows) / 1e3
 
 
 def port_kernels(rows) -> dict:
@@ -1340,8 +1421,10 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         if name == "loop_route":
             err = max(max_abs_err(got.boxes, want.boxes),
                       max_abs_err(got[1:], want[1:]))
-        elif name in ("extract_slots", "spec_check", "nic_gate"):
+        elif name in ("spec_check", "nic_gate"):
             err = max_abs_err([got], [want])
+        elif name == "extract_slots":
+            err = max_abs_err(flat_extract(got), flat_extract(want))
         elif name in ("tcp_ack", "tcp_out"):
             err = max(max_abs_err(got.fields, want.fields),
                       max_abs_err(got[1:], want[1:]))
@@ -1353,7 +1436,7 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
             if "drop mode" in label and n == 0:
                 fail(f"{phase}: the synthetic drop-mode state dropped none")
         if name == "extract_slots":
-            extra = f" N={args[0].shape[0]} Kc={args[2]}"
+            extra = f" N={args[0].shape[0]} C={args[2].shape[0]} Kc={args[9]}"
         if name in BRANCHES:
             hosts = {b: int(((want.flags >> bit) & 1).sum())
                      for b, bit in BRANCHES[name].items()}
@@ -1819,11 +1902,13 @@ def synthetic_select(H: int, K: int, B: int, O: int, PP: int, G: int,
 
 def compiler_view(reports: dict) -> dict:
     """{kernel: {entry function: registers, shared memory bytes, spill
-    bytes (stores + loads)}} of the micro-step's two kernels, the
-    in-place net-stack kernels and the NIC's admission kernels, from
-    nvcc's -Xptxas -v reports."""
+    bytes (stores + loads)}} of the matrix path's extract_slots and
+    phold_forward, the micro-step's two kernels, the in-place net-stack
+    kernels and the NIC's admission kernels, from nvcc's -Xptxas -v
+    reports."""
     view = {}
-    for name in ("loop_select", "loop_route", "ring_append", "tcp_ack",
+    for name in ("extract_slots", "phold_forward", "loop_select",
+                 "loop_route", "ring_append", "tcp_ack",
                  "tcp_reorder", "tcp_out", "nic_tx", "nic_rx", "nic_gate"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():

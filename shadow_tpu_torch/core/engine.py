@@ -16,10 +16,11 @@ One matrix window:
 
 1. EXTRACT (``dense_extract``): a stable 2-key sort of the pool plus K
    filler rows per host on the packed keys ``run_key << 44 | dt`` and
-   ``src << 32 | seq``; the kernel ``extract_slots`` ranks each row within
-   its host run; a stable sort by dense slot lands the window as an
-   ``[H, K]`` matrix and leaves every other row, in sorted order, as the
-   tail.
+   ``src << 32 | seq``; the kernel ``extract_slots`` then moves each
+   sorted row to its place: the first K rows of each host run to the
+   ``[H, K]`` matrix, every other row, in sorted order, to the tail (the
+   JAX package's rank scan and second sort by dense slot, in closed
+   form: every host run holds at least its K fillers).
 2. FORWARD: the model's matrix handler (PHOLD: the kernel
    ``phold_forward``) emits one numbered row per dense cell.
 3. COMMIT: the kernel ``audit_commit`` folds the window into the audit
@@ -164,26 +165,8 @@ def draw_uniform(state: SimState, mask):
     return state.with_host(rng_counter=c), u
 
 
-class DenseWindow(NamedTuple):
-    """Each host's earliest Kc in-window events in (time, src, seq) order;
-    cells past a host's events hold filler rows at time NEVER."""
-
-    time: torch.Tensor  # [H, Kc] int64
-    src: torch.Tensor  # [H, Kc] int32
-    seq: torch.Tensor  # [H, Kc] int32
-    kind: torch.Tensor  # [H, Kc] int32
-    payload: torch.Tensor  # [H, Kc, PP] int64
-
-
-class Tail(NamedTuple):
-    """Every row not extracted, in the first sort's order: C rows."""
-
-    time: torch.Tensor
-    dst: torch.Tensor
-    src: torch.Tensor
-    seq: torch.Tensor
-    kind: torch.Tensor
-    payload: torch.Tensor  # [C, PP]
+DenseWindow = kernels.DenseWindow
+Tail = kernels.Tail
 
 
 class Frontier(NamedTuple):
@@ -232,38 +215,13 @@ def window_keys(pool: EventPool, win_start: int, win_end: int, H: int,
 def dense_extract(pool: EventPool, win_start: int, win_end: int, H: int,
                   Kc: int, ops: kernels.WindowOps = kernels.KERNEL_OPS):
     """Extract the window [win_start, win_end) into a dense [H, Kc] matrix
-    and the tail of every other row (the JAX package's ``_dense_extract``).
-    Filler rows are time NEVER, dst = their host, src = seq = kind = 0 and
-    a zero payload; those not extracted ride the tail in sorted order."""
-    HK = H * Kc
-    dev = pool.time.device
+    and the tail of every other row (the JAX package's ``_dense_extract``):
+    the first sort, then ``extract_slots`` places every sorted row. Filler
+    rows are time NEVER, dst = their host, src = seq = kind = 0 and a zero
+    payload; those not extracted ride the tail in sorted order."""
     s_k1, perm = window_keys(pool, win_start, win_end, H, Kc)
-    slot = ops.extract_slots(s_k1, H, Kc)
-    rows = perm[torch.sort(slot, stable=True).indices]
-
-    def col(pool_col, filler):
-        return torch.cat([pool_col, filler])[rows]
-
-    z32 = torch.zeros(HK, dtype=torch.int32, device=dev)
-    fill_dst = torch.arange(H, dtype=torch.int32,
-                            device=dev).repeat_interleave(Kc)
-    o_t = col(pool.time, torch.full((HK,), NEVER, dtype=torch.int64,
-                                    device=dev))
-    o_s = col(pool.src, z32)
-    o_q = col(pool.seq, z32)
-    o_k = col(pool.kind, z32)
-    o_d = col(pool.dst, fill_dst)
-    PP = pool.payload.shape[1]
-    o_p = col(pool.payload, torch.zeros((HK, PP), dtype=torch.int64,
-                                        device=dev))
-    dense = DenseWindow(
-        time=o_t[:HK].reshape(H, Kc), src=o_s[:HK].reshape(H, Kc),
-        seq=o_q[:HK].reshape(H, Kc), kind=o_k[:HK].reshape(H, Kc),
-        payload=o_p[:HK].reshape(H, Kc, PP),
-    )
-    tail = Tail(time=o_t[HK:], dst=o_d[HK:], src=o_s[HK:], seq=o_q[HK:],
-                kind=o_k[HK:], payload=o_p[HK:])
-    return dense, tail
+    return ops.extract_slots(s_k1, perm, pool.time, pool.dst, pool.src,
+                             pool.seq, pool.kind, pool.payload, H, Kc)
 
 
 def merge_rows(blocks, capacity: int):

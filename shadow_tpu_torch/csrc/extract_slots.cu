@@ -1,57 +1,125 @@
-// K3 extract_slots: the dense slot of each row of the sorted window keys.
+// K3 extract_slots: every row of the window's first sort moved to its place.
 //
-// Replaces the rank scan of shadow_tpu/core/engine.py:_dense_extract (the
-// boundary mask and lax.cummax over the first sort's k1 column) and the
-// slot formula that follows it.
+// Replaces shadow_tpu/core/engine.py:_dense_extract after its first sort:
+// the rank scan (the boundary mask and lax.cummax over the k1 column), the
+// slot formula, and the second stable sort by slot that carries every
+// column and payload word.
 //
-// Input: the k1 column after the window's first stable sort, N rows, each
-// run_key << 44 | dt with run_key in [0, H] (H marks rows outside the
-// window). Output: slot = run_key * Kc + rank for the first Kc rows of
-// each host run (run_key < H), N for every other row; rank is the row's
-// index minus the index of its run's first row.
+// Inputs: the k1 column after the window's first stable sort, N = C + H*Kc
+// rows, each run_key << 44 | dt with run_key in [0, H] (H marks rows
+// outside the window); perm, the row each sorted position came from (pool
+// rows 0..C-1, then the H*Kc filler rows host-major); the pool's columns.
+// Every host run holds at least Kc rows (its Kc fillers), so where the
+// stable sort by slot puts sorted row i, with key its run_key and rank its
+// index minus its run's first index, follows in closed form:
+//   key * Kc + rank                (key < H, rank < Kc: the dense window)
+//   H*Kc + i - min(key + 1, H)*Kc  (every other row: the tail, in order).
+// rank >= Kc exactly when i >= Kc and row i - Kc has the same key; below
+// that the rank is i minus the first index in (i - Kc, i] with its key.
+// Output: the N placed rows column by column (time, src, seq, kind,
+// payload; dst for the C tail rows only). A filler's columns are made in
+// registers: time NEVER, dst its host, src = seq = kind = 0, zero payload.
 //
-// Bound: bytes. The function reads N int64 keys and writes N int32 slots,
-// 12 bytes a row. Design: one thread per row. The run's first index is the
-// lower bound of (run_key << 44) over the sorted keys, found by a binary
-// search over [0, i]; this equals the cummax over run boundaries and needs
-// no scan across blocks. The search's ~log2(N) reads are shared by
-// neighbouring threads and stay in L2.
+// Bound: bytes. It reads 16 bytes a sorted row (key and perm) and each
+// pool row once, and writes each placed row once. Design: one thread per
+// sorted row. A block stages the keys of its rows and the Kc keys before
+// them (the halo, at most kMaxKc) in shared memory, so the rank is a
+// binary search of log2(Kc) steps there instead of a search over [0, i]
+// in device memory. The rows of one host run land on consecutive slots
+// and the tail is consecutive, so the stores coalesce; the pool rows are
+// gathered. A warp copies its 32 rows' payload words together, lane j on
+// word j % PP of row j / PP (the row's place and source by shuffle), so
+// neighbouring lanes store neighbouring words at any PP.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kDtBits = 44;
+constexpr int kBlock = 256;
+constexpr int kMaxKc = 1024;  // the C entry refuses a larger Kc
+constexpr long long kNever = 0x7FFFFFFFFFFFFFFFLL;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__global__ void extract_slots_kernel(const long long* __restrict__ k1,
-                                     int* __restrict__ slot, long long n,
-                                     int H, int Kc) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  long long key = k1[i] >> kDtBits;
-  long long first_k1 = key << kDtBits;
-  long long lo = 0, hi = i;  // first index in [0, i] with k1 >= first_k1
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (k1[mid] < first_k1)
-      lo = mid + 1;
-    else
-      hi = mid;
+__global__ void __launch_bounds__(kBlock) extract_slots_kernel(
+    const long long* __restrict__ k1, const long long* __restrict__ perm,
+    const long long* __restrict__ p_t, const int* __restrict__ p_d,
+    const int* __restrict__ p_s, const int* __restrict__ p_q,
+    const int* __restrict__ p_k, const long long* __restrict__ p_p,
+    long long* __restrict__ o_t, int* __restrict__ o_s,
+    int* __restrict__ o_q, int* __restrict__ o_k,
+    long long* __restrict__ o_p, int* __restrict__ o_d, long long n, int C,
+    int H, int Kc, int PP) {
+  // skey[j] is the key of row b0 - Kc + j, -1 before row 0 (keys are >= 0)
+  __shared__ int skey[kBlock + kMaxKc];
+  const long long b0 = (long long)blockIdx.x * kBlock;
+  for (int j = threadIdx.x; j < kBlock + Kc; j += kBlock) {
+    const long long g = b0 - Kc + j;
+    skey[j] = (g >= 0 && g < n) ? (int)(k1[g] >> kDtBits) : -1;
   }
-  long long rank = i - lo;
-  slot[i] = (key < H && rank < Kc) ? (int)(key * Kc + rank) : (int)n;
+  __syncthreads();
+  const long long i = b0 + threadIdx.x;
+  long long o = -1, r = 0;  // the placed row (-1 past the last) and source
+  if (i < n) {
+    const int me = Kc + threadIdx.x;
+    const int key = skey[me];
+    const long long HK = (long long)H * Kc;
+    const bool dense = key < H && skey[threadIdx.x] != key;
+    if (dense) {  // a dense slot
+      int lo = threadIdx.x + 1, hi = me;  // first of (i - Kc, i] with key
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (skey[mid] < key)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      o = (long long)key * Kc + (me - lo);
+    } else {  // HK + the tail index
+      o = HK + i - (long long)(key < H ? key + 1 : H) * Kc;
+    }
+    r = perm[i];
+    if (r < C) {
+      o_t[o] = p_t[r];
+      o_s[o] = p_s[r];
+      o_q[o] = p_q[r];
+      o_k[o] = p_k[r];
+      if (!dense) o_d[o - HK] = p_d[r];
+    } else {
+      o_t[o] = kNever;
+      o_s[o] = 0;
+      o_q[o] = 0;
+      o_k[o] = 0;
+      if (!dense) o_d[o - HK] = (int)((r - C) / Kc);
+    }
+  }
+  // every lane runs PP rounds, so the whole warp reaches each shuffle
+  for (int j = threadIdx.x & 31; j < 32 * PP; j += 32) {
+    const int row = j / PP, w = j - row * PP;
+    const long long ro = __shfl_sync(kFull, o, row);
+    const long long rr = __shfl_sync(kFull, r, row);
+    if (ro >= 0) o_p[ro * PP + w] = rr < C ? p_p[rr * PP + w] : 0;
+  }
 }
 
 }  // namespace
 
-extern "C" int extract_slots(const void* k1, void* slot, long long n, int H,
-                             int Kc, void* stream) {
+// a: k1, perm, the pool's time, dst, src, seq, kind and payload; the
+// outputs time, src, seq, kind, payload and the tail's dst; n, C, H, Kc, PP
+extern "C" int extract_slots(const long long* a, void* stream) {
+  const long long n = a[14];
+  const int C = (int)a[15], H = (int)a[16], Kc = (int)a[17], PP = (int)a[18];
+  if (Kc < 1 || Kc > kMaxKc || n != C + (long long)H * Kc)
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    extract_slots_kernel<<<(unsigned)blocks, threads, 0,
+    const long long blocks = (n + kBlock - 1) / kBlock;
+    extract_slots_kernel<<<(unsigned)blocks, kBlock, 0,
                            (cudaStream_t)stream>>>(
-        (const long long*)k1, (int*)slot, n, H, Kc);
+        (const long long*)a[0], (const long long*)a[1],
+        (const long long*)a[2], (const int*)a[3], (const int*)a[4],
+        (const int*)a[5], (const int*)a[6], (const long long*)a[7],
+        (long long*)a[8], (int*)a[9], (int*)a[10], (int*)a[11],
+        (long long*)a[12], (int*)a[13], n, C, H, Kc, PP);
   }
   return (int)cudaGetLastError();
 }

@@ -21,10 +21,16 @@
 //
 // Bound: bytes. It reads 16 bytes a cell (time, payload) and writes 32
 // (time, dst, src, seq, kind, payload); the ~4 threefry blocks a cell are
-// ~400 integer operations, far under the card's integer rate at this
-// byte count. Design: one thread per host, a sequential loop over k (the
-// draw counters and seq numbers are exclusive counts along k). The stores
-// are strided by K across a warp; coalescing them is later work.
+// ~400 integer operations, under the card's integer rate at this byte
+// count. Design: one warp per host, a lane per cell over chunks of 32
+// columns (a host with K > 32 loops, carrying its counts in registers).
+// The draw counter c0 + 2 * sends_before_k and the seq number are
+// exclusive counts along k: each is the chunk's carried count plus the
+// popcount of the lanes below in a __ballot_sync of the send (or emit)
+// flags. A warp's loads and stores of a chunk's cells are contiguous, and
+// the payload words are copied by the lanes across the host's K * PP
+// contiguous words. 8 hosts a block (2 and 4 were no faster); lane 0
+// writes the per-host results.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,8 +40,19 @@
 namespace {
 
 constexpr long long kNever = 0x7FFFFFFFFFFFFFFFLL;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kHostsPerBlock = 8;  // one warp each
 
-__global__ void phold_forward_kernel(
+// PHOLD's uniform destination: skip self, in float32 (pick_dst)
+__device__ __forceinline__ int pick_dst(float u, int me, int num_hosts) {
+  if (num_hosts <= 1) return me;
+  const float f = floorf(__fmul_rn(u, (float)(num_hosts - 1)));
+  int d = (int)f;
+  d = d < 0 ? 0 : (d > num_hosts - 2 ? num_hosts - 2 : d);
+  return d + (d >= me ? 1 : 0);
+}
+
+__global__ void __launch_bounds__(32 * kHostsPerBlock) phold_forward_kernel(
     const long long* __restrict__ d_t, const long long* __restrict__ d_p,
     const long long* __restrict__ keys, const long long* __restrict__ ctr,
     const int* __restrict__ seq_next, const int* __restrict__ gid,
@@ -48,29 +65,28 @@ __global__ void phold_forward_kernel(
     long long* __restrict__ o_stats, int H, int K, int PP, int U,
     int num_hosts, long long stop_sending, long long bootstrap_end,
     long long win_end, int kind) {
-  int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= H) return;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x * kHostsPerBlock + (threadIdx.x >> 5);
+  if (h >= H) return;  // the whole warp
+  const unsigned below = (1u << lane) - 1u;
   const uint32_t k0 = (uint32_t)keys[2 * h], k1 = (uint32_t)keys[2 * h + 1];
   const uint32_t c0 = (uint32_t)ctr[h];
   const int me = gid[h];
   const uint32_t base = (uint32_t)seq_next[h];
   const int vs = vertex[h];
-  const float hm1 = (float)(num_hosts - 1);
-  uint32_t n_send = 0u, n_emit = 0u;
-  long long n_valid = 0, n_viol = 0;
-  for (int k = 0; k < K; ++k) {
-    const long long i = (long long)h * K + k;
-    const long long t = d_t[i];
+  const long long row = (long long)h * K;
+  uint32_t n_send = 0u, n_emit = 0u, n_valid = 0u, n_viol = 0u;
+  for (int kb = 0; kb < K; kb += 32) {
+    const bool in = kb + lane < K;
+    const long long i = row + kb + lane;
+    const long long t = in ? d_t[i] : kNever;
     const bool valid = t != kNever;
     const bool send = valid && t < stop_sending;
-    const uint32_t off = c0 + 2u * n_send;
+    const unsigned sends = __ballot_sync(kFull, send);
+    const uint32_t off = c0 + 2u * (n_send + __popc(sends & below));
     int dst = me;
-    if (num_hosts > 1) {
-      float f = floorf(__fmul_rn(rng::uniform_at(k0, k1, off), hm1));
-      int d = (int)f;
-      d = d < 0 ? 0 : (d > num_hosts - 2 ? num_hosts - 2 : d);
-      dst = d + (d >= me ? 1 : 0);
-    }
+    if (in && num_hosts > 1)
+      dst = pick_dst(rng::uniform_at(k0, k1, off), me, num_hosts);
     bool emit = false;
     long long te = kNever;
     if (send) {
@@ -80,32 +96,38 @@ __global__ void phold_forward_kernel(
         lat = lat_vv[0];
         rel = rel_vv[0];
       } else {
-        long long e = (long long)vs * U + vtab[dst];
+        const long long e = (long long)vs * U + vtab[dst];
         lat = lat_vv[e];
         rel = rel_vv[e];
       }
       emit = t < bootstrap_end || rng::uniform_at(k0, k1, off + 1u) < rel;
-      if (emit) {
+      if (emit)
         te = (long long)((unsigned long long)t + (unsigned long long)lat);
-        if (dst == me && te < win_end) ++n_viol;
-      }
     }
-    o_time[i] = te;
-    o_dst[i] = dst;
-    o_src[i] = me;
-    o_seq[i] = (int)(base + n_emit);
-    o_kind[i] = kind;
-    for (int w = 0; w < PP; ++w) o_payload[i * PP + w] = d_p[i * PP + w];
-    n_valid += valid;
-    n_send += send;
-    n_emit += emit;
+    const unsigned emits = __ballot_sync(kFull, emit);
+    const bool viol = emit && dst == me && te < win_end;
+    if (in) {
+      o_time[i] = te;
+      o_dst[i] = dst;
+      o_src[i] = me;
+      o_seq[i] = (int)(base + n_emit + __popc(emits & below));
+      o_kind[i] = kind;
+    }
+    n_valid += __popc(__ballot_sync(kFull, valid));
+    n_send += __popc(sends);
+    n_emit += __popc(emits);
+    n_viol += __popc(__ballot_sync(kFull, viol));
   }
-  o_ctr[h] = (long long)(uint32_t)(c0 + 2u * n_send);
-  o_seq_next[h] = (int)(base + n_emit);
-  o_stats[4 * h + 0] = n_valid;
-  o_stats[4 * h + 1] = n_send;
-  o_stats[4 * h + 2] = n_emit;
-  o_stats[4 * h + 3] = n_viol;
+  const long long w0 = row * PP;
+  for (int w = lane; w < K * PP; w += 32) o_payload[w0 + w] = d_p[w0 + w];
+  if (lane == 0) {
+    o_ctr[h] = (long long)(uint32_t)(c0 + 2u * n_send);
+    o_seq_next[h] = (int)(base + n_emit);
+    o_stats[4 * h + 0] = n_valid;
+    o_stats[4 * h + 1] = n_send;
+    o_stats[4 * h + 2] = n_emit;
+    o_stats[4 * h + 3] = n_viol;
+  }
 }
 
 }  // namespace
@@ -119,9 +141,8 @@ extern "C" int phold_forward(
     int U, int num_hosts, long long stop_sending, long long bootstrap_end,
     long long win_end, int kind, void* stream) {
   if (H > 0) {
-    const int threads = 128;
-    phold_forward_kernel<<<(H + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(
+    phold_forward_kernel<<<(H + kHostsPerBlock - 1) / kHostsPerBlock,
+                           32 * kHostsPerBlock, 0, (cudaStream_t)stream>>>(
         (const long long*)d_t, (const long long*)d_p, (const long long*)keys,
         (const long long*)ctr, (const int*)seq_next, (const int*)gid,
         (const int*)vertex, (const int*)vtab, (const long long*)lat_vv,

@@ -5,8 +5,10 @@ Eighteen kernels carry the window step on the card (sources under
 ``csrc/``, one shared library each). The PHOLD matrix path runs the
 first three:
 
-* ``extract_slots`` (K3): dense slot of each row of the sorted window
-  keys — the rank scan of ``shadow_tpu/core/engine.py:_dense_extract``.
+* ``extract_slots`` (K3): every row of the window's first sort moved to
+  its place in the dense window or the tail — the rank scan and the
+  second sort of ``shadow_tpu/core/engine.py:_dense_extract``, with the
+  filler rows made in registers.
 * ``phold_forward`` (K1): PHOLD's forwarding over the ``[H, K]`` window —
   ``shadow_tpu/net/apps.py:PholdApp.handle_msg_matrix`` with its threefry
   draws, plus the per-source seq numbering of ``run_matrix``.
@@ -92,6 +94,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -139,7 +142,11 @@ class Kernel:
         return os.path.join(CSRC, f"{self.name}.cu")
 
 
-EXTRACT_SLOTS = Kernel("extract_slots", (_P, _P, _L, _I, _I, _P))
+# extract_slots and the NIC's admission kernels take their arguments
+# packed in one host array of int64 (``_PACK``: pointers, strides, sizes;
+# the C entry names them in order) and the stream: one ctypes argument
+# costs more than packing one value
+EXTRACT_SLOTS = Kernel("extract_slots", (ctypes.c_char_p, _P))
 PHOLD_FORWARD = Kernel(
     "phold_forward",
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
@@ -211,14 +218,11 @@ LINK_SEND = Kernel(
      _P, _P, _P, _P,  # outputs
      _I, _P),
 )
-# the NIC's admission kernels take their arguments packed in one host
-# array of int64 (``_PACK``: pointers, strides, sizes; the C entry names
-# them in order) and the stream: one ctypes argument costs more than
-# packing one value
 NIC_TX = Kernel("nic_tx", (ctypes.c_char_p, _P))
 NIC_RX = Kernel("nic_rx", (ctypes.c_char_p, _P))
 NIC_GATE = Kernel("nic_gate", (ctypes.c_char_p, _P))
-_PACK = {"nic_tx": struct.Struct("<30q"), "nic_rx": struct.Struct("<19q"),
+_PACK = {"extract_slots": struct.Struct("<19q"),
+         "nic_tx": struct.Struct("<30q"), "nic_rx": struct.Struct("<19q"),
          "nic_gate": struct.Struct("<18q")}
 KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
            LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
@@ -299,6 +303,16 @@ def build(kernels=KERNELS, force: bool = False) -> dict[str, str]:
     return reports
 
 
+def csrc_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in the file
+    ``source`` of ``csrc/``: a kernel's limit, read where it is set."""
+    with open(os.path.join(CSRC, source)) as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    if len(found) != 1:
+        raise RuntimeError(f"{source} sets {name} {len(found)} times")
+    return int(found[0])
+
+
 def _lib(k: Kernel):
     lib = _libs.get(k.name)
     if lib is None:
@@ -324,6 +338,11 @@ def _launch(k: Kernel, *args) -> None:
 def _on_card(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on a mix or on
     another device type."""
+    for t in tensors:  # the card's case first: no device objects made
+        if not t.is_cuda:
+            break
+    else:
+        return True
     types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return False
@@ -354,8 +373,39 @@ def _stream(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
-def extract_slots_plain(s_k1: torch.Tensor, H: int, Kc: int) -> torch.Tensor:
-    """Plain version: the JAX package's boundary + cummax rank scan."""
+class DenseWindow(NamedTuple):
+    """Each host's earliest Kc in-window events in (time, src, seq) order;
+    cells past a host's events hold filler rows at time NEVER."""
+
+    time: torch.Tensor  # [H, Kc] int64
+    src: torch.Tensor  # [H, Kc] int32
+    seq: torch.Tensor  # [H, Kc] int32
+    kind: torch.Tensor  # [H, Kc] int32
+    payload: torch.Tensor  # [H, Kc, PP] int64
+
+
+class Tail(NamedTuple):
+    """Every row not extracted, in the first sort's order: C rows."""
+
+    time: torch.Tensor
+    dst: torch.Tensor
+    src: torch.Tensor
+    seq: torch.Tensor
+    kind: torch.Tensor
+    payload: torch.Tensor  # [C, PP]
+
+
+class Extracted(NamedTuple):
+    """A window's extraction: the dense window and the tail."""
+
+    dense: DenseWindow
+    tail: Tail
+
+
+def dense_slots(s_k1: torch.Tensor, H: int, Kc: int) -> torch.Tensor:
+    """[N] int32 dense slot of each sorted window row: key * Kc + rank for
+    the first Kc rows of each host run, N for every other row (the JAX
+    package's boundary + cummax rank scan)."""
     N = s_k1.shape[0]
     s_key = s_k1 >> DT_BITS
     iota = torch.arange(N, dtype=torch.int64, device=s_k1.device)
@@ -367,16 +417,103 @@ def extract_slots_plain(s_k1: torch.Tensor, H: int, Kc: int) -> torch.Tensor:
     return torch.where(extract, s_key * Kc + rank, N).to(torch.int32)
 
 
-def extract_slots(s_k1: torch.Tensor, H: int, Kc: int) -> torch.Tensor:
-    """[N] int32 dense slot of each sorted window row: key * Kc + rank for
-    the first Kc rows of each host run, N for every other row."""
-    if not _on_card(s_k1):
-        return extract_slots_plain(s_k1, H, Kc)
-    N = s_k1.shape[0]
-    slot = torch.empty(N, dtype=torch.int32, device=s_k1.device)
-    _launch(EXTRACT_SLOTS, _check(s_k1, torch.int64, (N,), "s_k1"),
-            slot.data_ptr(), N, H, Kc, _stream(s_k1))
-    return slot
+def place_rows(slot, perm, time, dst, src, seq, kind, payload, H: int,
+               Kc: int) -> Extracted:
+    """The JAX package's second sort: every sorted row, pool row or
+    filler, gathered in stable order of its dense slot; the first H·Kc
+    land as the dense window, the rest are the tail. Filler rows are time
+    NEVER, dst = their host, src = seq = kind = 0 and a zero payload."""
+    HK = H * Kc
+    dev = time.device
+    rows = perm[torch.sort(slot, stable=True).indices]
+
+    def col(pool_col, filler):
+        return torch.cat([pool_col, filler])[rows]
+
+    z32 = torch.zeros(HK, dtype=torch.int32, device=dev)
+    fill_dst = torch.arange(H, dtype=torch.int32,
+                            device=dev).repeat_interleave(Kc)
+    o_t = col(time, torch.full((HK,), NEVER, dtype=torch.int64, device=dev))
+    o_s, o_q, o_k = col(src, z32), col(seq, z32), col(kind, z32)
+    o_d = col(dst, fill_dst)
+    PP = payload.shape[1]
+    o_p = col(payload, torch.zeros((HK, PP), dtype=torch.int64, device=dev))
+    return Extracted(
+        DenseWindow(time=o_t[:HK].view(H, Kc), src=o_s[:HK].view(H, Kc),
+                    seq=o_q[:HK].view(H, Kc), kind=o_k[:HK].view(H, Kc),
+                    payload=o_p[:HK].view(H, Kc, PP)),
+        Tail(time=o_t[HK:], dst=o_d[HK:], src=o_s[HK:], seq=o_q[HK:],
+             kind=o_k[HK:], payload=o_p[HK:]),
+    )
+
+
+def extract_slots_plain(s_k1, perm, time, dst, src, seq, kind, payload,
+                        H: int, Kc: int) -> Extracted:
+    """Plain version, the JAX package's form: the rank scan, then the
+    stable sort by slot and the gathers."""
+    return place_rows(dense_slots(s_k1, H, Kc), perm, time, dst, src, seq,
+                      kind, payload, H, Kc)
+
+
+def extract_slots(s_k1, perm, time, dst, src, seq, kind, payload, H: int,
+                  Kc: int) -> Extracted:
+    """Place every row of the window's first sort: ``s_k1`` and ``perm``
+    from ``engine.window_keys`` (N = C + H·Kc sorted k1 keys and the row
+    each came from: the C pool rows, whose columns follow, then H·Kc
+    fillers, host-major). Returns the dense window and the tail, as the
+    JAX package's rank scan and second sort leave them."""
+    args = (s_k1, perm, time, dst, src, seq, kind, payload)
+    if not _on_card(*args):
+        return extract_slots_plain(*args, H, Kc)
+    # the C entry refuses a Kc past the keys a block stages before its
+    # rows (``kMaxKc``), and the wrapper raises
+    C = time.shape[0]
+    PP = payload.shape[-1]
+    N = C + H * Kc
+    # the kernel places row i by the keys and gathers pool rows by perm,
+    # so every input must have its type and length
+    ins = []
+    for t, dtype, n in ((s_k1, torch.int64, N), (perm, torch.int64, N),
+                        (time, torch.int64, C), (dst, torch.int32, C),
+                        (src, torch.int32, C), (seq, torch.int32, C),
+                        (kind, torch.int32, C), (payload, torch.int64,
+                                                 C * PP)):
+        if t.dtype is not dtype or t.numel() != n or not t.is_contiguous():
+            raise ValueError(f"extract_slots: want contiguous {dtype} of "
+                             f"{n} elements, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        ins.append(t.data_ptr())
+    # one allocation, each column of the N placed rows (dense slots, then
+    # the tail) contiguous: time and payload as int64, then src, seq, kind
+    # and the tail's dst as int32
+    n64, n32 = N * (1 + PP), 3 * N + C
+    buf = torch.empty(n64 + (n32 + 1) // 2, dtype=torch.int64,
+                      device=time.device)
+    base = buf.data_ptr()
+    b32 = base + 8 * n64
+    _launch(EXTRACT_SLOTS, _PACK["extract_slots"].pack(
+        *ins, base, b32, b32 + 4 * N, b32 + 8 * N, base + 8 * N,
+        b32 + 12 * N, N, C, H, Kc, PP), _stream(time))
+    return _extract_views(buf, C, H, Kc, PP)
+
+
+def _extract_views(buf: torch.Tensor, C: int, H: int, Kc: int,
+                   PP: int) -> Extracted:
+    """The views of ``extract_slots``' one allocation: two splits and the
+    shapes."""
+    HK, N = H * Kc, C + H * Kc
+    n32 = 3 * N + C
+    d_t, t_t, d_p, t_p, i32 = buf.split_with_sizes(
+        [HK, C, HK * PP, C * PP, (n32 + 1) // 2])
+    d_s, t_s, d_q, t_q, d_k, t_k, t_d, _ = i32.view(
+        torch.int32).split_with_sizes([HK, C, HK, C, HK, C, C, n32 & 1])
+    return Extracted(
+        DenseWindow(time=d_t.view(H, Kc), src=d_s.view(H, Kc),
+                    seq=d_q.view(H, Kc), kind=d_k.view(H, Kc),
+                    payload=d_p.view(H, Kc, PP)),
+        Tail(time=t_t, dst=t_d, src=t_s, seq=t_q, kind=t_k,
+             payload=t_p.view(C, PP)),
+    )
 
 
 # ---------------------------------------------------------------------------

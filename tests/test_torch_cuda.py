@@ -89,9 +89,15 @@ def _three_vertex_sim(device):
 
 
 def _sims(device):
+    """PHOLD at K = 19, 4, 24 (the bench shape's K, on 37 hosts: not a
+    multiple of phold_forward's 8 hosts a block) and 40 (chunks of 32
+    columns), on one host, and over the three-vertex table."""
     return [
         build_phold_flagship(96, msgload=3, stop_s=3, device=device),
         build_phold_flagship(40, msgload=2, stop_s=3, K=4, device=device),
+        build_phold_flagship(37, msgload=8, stop_s=3, device=device),
+        build_phold_flagship(41, msgload=3, stop_s=3, K=40, device=device),
+        build_phold_flagship(1, msgload=2, stop_s=3, device=device),
         _three_vertex_sim(device),
     ]
 
@@ -123,15 +129,80 @@ def _eq(a, b):
         assert torch.equal(x, y)
 
 
+def _extract_args(pool, ws, we, H, Kc):
+    s_k1, perm = engine.window_keys(pool, ws, we, H, Kc)
+    return (s_k1, perm, pool.time, pool.dst, pool.src, pool.seq, pool.kind,
+            pool.payload, H, Kc)
+
+
+def _flat_extract(out):
+    return [*out.dense, *out.tail]
+
+
+def _extract_eq(args):
+    n = kernels.EXTRACT_SLOTS.launches
+    got = kernels.extract_slots(*args)
+    assert kernels.EXTRACT_SLOTS.launches == n + 1
+    want = kernels.extract_slots_plain(*args)
+    _eq(_flat_extract(got), _flat_extract(want))
+
+
+def _random_pool(rs, C, H, ws, we, PP, device):
+    """Rows in and past the window, free rows, destinations outside
+    [0, H), a hot host past Kc, ties in (time, src)."""
+    u = rs.random(C)
+    time = np.where(u < 0.5, ws + rs.integers(0, 6, C) * ((we - ws) // 6),
+                    np.where(u < 0.8, we + rs.integers(0, we - ws, C),
+                             NEVER)).astype(np.int64)
+    dst = rs.integers(-2, H + 2, C).astype(np.int32)
+    dst[rs.random(C) < 0.2] = 0
+    cols = dict(
+        time=time, dst=dst, src=rs.integers(0, 4, C).astype(np.int32),
+        seq=rs.integers(0, 2**31 - 1, C).astype(np.int32),
+        kind=rs.integers(0, 4, C).astype(np.int32),
+        payload=rs.integers(-2**63, 2**63 - 1, (C, PP), dtype=np.int64),
+    )
+    from shadow_tpu_torch.core.state import EventPool
+
+    return EventPool(**{k: torch.as_tensor(v, device=device)
+                        for k, v in cols.items()})
+
+
 def test_extract_slots_matches_plain(card):
+    """extract_slots places every row as its plain version's sort does:
+    PHOLD windows at Kc = K and at the loop path's K + 1, the congested
+    flood's loop-path windows, pools whose C is not a multiple of the
+    block, and a Kc whose halo reaches past the block before."""
     for sim in _sims(card):
         H = sim.num_hosts
         for st, ws, we in _windows(sim, 4):
-            s_k1, _ = engine.window_keys(st.pool, ws, we, H, sim.K)
-            n = kernels.EXTRACT_SLOTS.launches
-            got = kernels.extract_slots(s_k1, H, sim.K)
-            assert kernels.EXTRACT_SLOTS.launches == n + 1
-            _eq([got], [kernels.extract_slots_plain(s_k1, H, sim.K)])
+            for Kc in (sim.K, sim.K + 1):
+                _extract_eq(_extract_args(st.pool, ws, we, H, Kc))
+    sim = build_simulation(CONGESTED_FLOOD, device=card)
+    for _ in range(6):
+        mn, occ, _, _ = sim._frontier(sim.stop_time)
+        we = min(mn + sim.runahead, sim.stop_time)
+        _extract_eq(_extract_args(sim.state.pool, mn, we, sim.num_hosts,
+                                  sim.K + 1))
+        sim.step_loop(mn, we, occ)
+    rs = np.random.default_rng(21)
+    ws, we = 1_000_000_000, 1_050_000_000
+    for C, H, Kc, PP in ((1000, 37, 5, 1), (777, 20, 13, 6),
+                         (900, 3, 300, 1), (5, 1, 1, 1)):
+        pool = _random_pool(rs, C, H, ws, we, PP, card)
+        _extract_eq(_extract_args(pool, ws, we, H, Kc))
+
+
+def test_extract_slots_refuses_a_kc_past_its_halo(card):
+    rs = np.random.default_rng(22)
+    Kc = kernels.csrc_constant("extract_slots.cu", "kMaxKc")
+    pool = _random_pool(rs, 300, 2, 0, 10**9, 1, card)
+    _extract_eq(_extract_args(pool, 0, 10**9, 2, Kc))
+    n = kernels.EXTRACT_SLOTS.launches
+    # the C entry refuses it: cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="extract_slots.*cudaError 1"):
+        kernels.extract_slots(*_extract_args(pool, 0, 10**9, 2, Kc + 1))
+    assert kernels.EXTRACT_SLOTS.launches == n
 
 
 def test_phold_forward_matches_plain(card):
@@ -145,7 +216,7 @@ def test_phold_forward_matches_plain(card):
             h = st.host
             ctr = torch.as_tensor(
                 rs.integers(0, 2**32, H, dtype=np.int64), device=card)
-            ctr[:4] = torch.tensor([0, 1, 2**31, 2**32 - 1])
+            ctr[:4] = torch.tensor([0, 1, 2**31, 2**32 - 1])[:H]
             seq = torch.as_tensor(
                 rs.integers(0, 2**31 - 64, H).astype(np.int32), device=card)
             for c, q in ((h.rng_counter, h.seq_next), (ctr, seq)):
@@ -202,12 +273,13 @@ def test_run_through_kernels_matches_plain_run(card):
 
 
 def test_kernels_refuse_bad_arguments(card):
-    s_k1 = torch.zeros(8, dtype=torch.int32, device=card)
-    with pytest.raises(ValueError):
-        kernels.extract_slots(s_k1, 2, 2)
-    with pytest.raises(ValueError):
-        kernels.extract_slots(torch.zeros(8, dtype=torch.int64,
-                                          device=card)[::2], 2, 2)
+    pool = _random_pool(np.random.default_rng(23), 4, 2, 0, 10, 1, card)
+    args = _extract_args(pool, 0, 10, 2, 2)
+    with pytest.raises(ValueError):  # int32 keys
+        kernels.extract_slots(args[0].to(torch.int32), *args[1:])
+    with pytest.raises(ValueError):  # a strided pool column
+        kernels.extract_slots(*args[:2], torch.zeros(
+            8, dtype=torch.int64, device=card)[::2], *args[3:])
     t = torch.full((4, 3), NEVER, dtype=torch.int64, device=card)
     with pytest.raises(ValueError):
         kernels.audit_commit(t, t, t, t, t, t, t, t)

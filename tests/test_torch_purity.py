@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from shadow_tpu_torch import kernels
+from shadow_tpu_torch.core import engine
+from shadow_tpu_torch.core.state import EventPool
 from shadow_tpu_torch.flagship import build_phold_flagship
 from shadow_tpu_torch.sim import build_simulation
 
@@ -91,9 +93,12 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
 def test_wrappers_take_no_other_device():
     """On the CPU a wrapper runs its plain version; a tensor on any other
     device than the CPU or the card is refused, never quietly computed."""
-    k1 = torch.zeros(8, dtype=torch.int64, device="meta")
+    pool = EventPool.empty(4, 2)
+    s_k1, perm = engine.window_keys(pool, 0, 10, 2, 2)
+    cols = (s_k1, perm, pool.time, pool.dst, pool.src, pool.seq, pool.kind,
+            pool.payload)
     with pytest.raises(ValueError):
-        kernels.extract_slots(k1, 2, 2)
-    cpu = torch.arange(8, dtype=torch.int64)
-    assert kernels.extract_slots(cpu, 2, 2).device.type == "cpu"
+        kernels.extract_slots(*(c.to("meta") for c in cols), 2, 2)
+    out = kernels.extract_slots(*cols, 2, 2)
+    assert out.dense.time.device.type == "cpu"
     assert kernels.EXTRACT_SLOTS.launches == 0

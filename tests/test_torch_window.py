@@ -1,7 +1,8 @@
 """The plain PyTorch version of each window-step kernel against its JAX
 counterpart, on the same seeded numpy inputs.
 
-* extraction: ``engine.dense_extract`` (with ``extract_slots``) against
+* extraction: ``engine.dense_extract`` (with ``extract_slots``'s plain
+  version) against
   ``shadow_tpu.core.engine._dense_extract``: the dense window and the tail,
   every column and every row;
 * PHOLD forward: ``PholdApp.handle_msg_matrix`` (``phold_forward``) against
@@ -94,8 +95,8 @@ def test_dense_extract_matches_jax(seed, C, H, Kc, PP):
 
 
 def test_extract_slots_plain_equals_search_form():
-    """The cummax form of the plain version equals the kernel's search
-    form: rank = i - (first index of the row's host key)."""
+    """The cummax rank scan of the plain version (``dense_slots``) equals
+    the search form: rank = i - (first index of the row's host key)."""
     rs = np.random.default_rng(3)
     H, Kc = 30, 5
     keys = np.sort(rs.integers(0, H + 1, 500))
@@ -105,7 +106,7 @@ def test_extract_slots_plain_equals_search_form():
     rank = np.arange(500) - first
     key = k1 >> kernels.DT_BITS
     want = np.where((key < H) & (rank < Kc), key * Kc + rank, 500)
-    got = kernels.extract_slots_plain(_t(k1), H, Kc).numpy()
+    got = kernels.dense_slots(_t(k1), H, Kc).numpy()
     assert np.array_equal(got, want.astype(np.int32))
 
 

@@ -3,7 +3,8 @@
     python3 tools/nic_variants.py [--hosts 10240,50176] [--rounds 5]
 
 On one CUDA card. Each variant is a copy of ``shadow_tpu_torch/csrc``
-with one change, built by nvcc with the kernels' flags:
+with one change, built by nvcc with the kernels' flags
+(``tools/variants.py``):
 
 - ``block64``, ``block256``: ``nic_tx``, ``nic_rx`` and ``nic_gate``
   with blocks of 64 or 256 threads (``nic::kBlock``; the port builds
@@ -26,12 +27,9 @@ and the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import shutil
 import statistics
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -41,6 +39,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from shadow_tpu_torch import kernels  # noqa: E402
+from tools import variants  # noqa: E402
 
 BLOCK = "constexpr int kBlock = 128;"
 MEMSET = {  # nic_tx.cu: text of the source -> text of the variant
@@ -56,71 +55,25 @@ MEMSET = {  # nic_tx.cu: text of the source -> text of the variant
 }
 # the memset variant ends its kernel after the warps' adds
 MEMSET_CUT = ("  __syncthreads();\n  if (threadIdx.x < 4) {", "\n}\n\n}  //")
+
+
+def memset_tx(src: str) -> str:
+    """nic_tx.cu with MEMSET's edits and its kernel cut after the adds."""
+    src = variants.replace_once(src, MEMSET, "memset: nic_tx.cu")
+    head, cut = src.split(MEMSET_CUT[0])
+    return head.rstrip() + MEMSET_CUT[1] + cut.split(MEMSET_CUT[1])[1]
+
+
 VARIANTS = {
     "block64": {"nic_common.cuh": {BLOCK: BLOCK.replace("128", "64")}},
     "block128": {},
     "block256": {"nic_common.cuh": {BLOCK: BLOCK.replace("128", "256")}},
-    "memset": {"nic_tx.cu": MEMSET},
+    "memset": {"nic_tx.cu": memset_tx},
 }
 KERNELS = (kernels.NIC_TX, kernels.NIC_RX, kernels.NIC_GATE)
 SYNTHETIC = {"nic_tx": chip_smoke.synthetic_nic_tx,
              "nic_rx": chip_smoke.synthetic_nic_rx,
              "nic_gate": chip_smoke.synthetic_nic_gate}
-
-
-def variant_source(variant: str) -> str:
-    """A copy of the sources with the variant's change; returns its
-    directory."""
-    out = os.path.join(kernels.BUILD_DIR, "variants", variant)
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(kernels.CSRC, out)
-    for name, edits in VARIANTS[variant].items():
-        path = os.path.join(out, name)
-        with open(path) as f:
-            src = f.read()
-        for old, new in edits.items():
-            if src.count(old) != 1:
-                raise RuntimeError(f"{variant}: {name} no longer holds "
-                                   f"{old!r} once")
-            src = src.replace(old, new)
-        if variant == "memset":
-            head, cut = src.split(MEMSET_CUT[0])
-            src = head.rstrip() + MEMSET_CUT[1] + cut.split(MEMSET_CUT[1])[1]
-        with open(path, "w") as f:
-            f.write(src)
-    return out
-
-
-def build_all() -> dict:
-    """{(kernel, variant): library}, one nvcc process a build, all started
-    together."""
-    by_name = {k.name: k for k in KERNELS}
-    procs = {}
-    for v in VARIANTS:
-        src = variant_source(v)
-        for k in KERNELS:
-            if v == "memset" and k is not kernels.NIC_TX:
-                continue
-            so = os.path.join(src, f"{k.name}.so")
-            cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", so,
-                   os.path.join(src, os.path.basename(k.source))]
-            procs[(k.name, v)] = (so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-    libs = {}
-    for (name, v), (so, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            chip_smoke.fail(f"nvcc failed for {name} {v}:\n{log}")
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"ptxas {name} {v}: {' | '.join(usage)}", flush=True)
-        lib = ctypes.CDLL(so)
-        fn = getattr(lib, name)
-        fn.argtypes = list(by_name[name].argtypes)
-        fn.restype = ctypes.c_int
-        libs[(name, v)] = lib
-    return libs
 
 
 def check(name: str, variant: str, got, want, args) -> None:
@@ -144,7 +97,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device")
     card = chip_smoke.card_line()
-    libs = build_all()
+    libs = variants.build({
+        (k.name, v): edits for v, edits in VARIANTS.items() for k in KERNELS
+        if v != "memset" or k is kernels.NIC_TX})
     for H in map(int, a.hosts.split(",")):
         for k in KERNELS:
             args, kw = SYNTHETIC[k.name](H, torch.device("cuda"))
