@@ -21,25 +21,28 @@ their NICs. Phases, each printing its numbers beside the card's name and
 power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the eighteen CUDA kernels from ``shadow_tpu_torch/csrc`` with
+2. build the twenty CUDA kernels from ``shadow_tpu_torch/csrc`` with
    nvcc (one process per source, all at once) and print ptxas's register
    and shared-memory report, and for ``loop_select``, ``loop_route``,
    ``ring_append``, ``tcp_ack``, ``tcp_reorder``, ``tcp_out``, ``nic_tx``,
-   ``nic_rx``, ``nic_gate``, ``extract_slots`` and ``phold_forward``
-   each entry function's registers, shared
-   memory and spill bytes;
+   ``nic_rx``, ``nic_gate``, ``extract_slots``, ``phold_forward``,
+   ``window_sort`` and ``pool_merge`` each entry function's registers,
+   shared memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
    graph), its issue time (the same calls back to back from Python, the
    median of five rounds) and
-   the plain version's time (CUDA events, warmed) beside the bound; what
-   ``extract_slots`` replaced (the parent's stable sort by slot and its
-   gathers and cats), timed on the same rows, and the device launches of
-   one ``dense_extract``, this tree's and the parent's, counted with
-   ``torch.profiler``; and the window step's parts, timed, with what
-   ``dense_extract`` costs after ``window_keys``: ``extract_slots``'
-   issue time under ``inference_mode``, as ``Simulation.run`` calls it
+   the plain version's time (CUDA events, warmed) beside the bound; the
+   two sorts ``window_sort`` and ``pool_merge`` (each of whose plain
+   versions is the whole torch sequence it replaces) also beside one
+   ``torch.sort(stable=True)`` on their keys (``library_ms``, CUDA events
+   over 20 calls back to back); the device launches of one
+   ``dense_extract`` and of one merge, through the kernels and through
+   the plain versions, counted with ``torch.profiler``, and the kernels'
+   device time by entry function; and the window
+   step's parts, timed, with the sorts' and ``extract_slots``' issue
+   times under ``inference_mode``, as ``Simulation.run`` calls them
    (in phases 6, 9
    and 12 five kernels
    write into their arguments: ``loop_route`` its boxes, ``ring_append``
@@ -131,7 +134,9 @@ The line has one entry for each kernel on each main path (``path``
 "phold", "config2", "config3", "config4", "mixed" or
 "config3_100mbit"): its ``launches`` in that path's run (phase 4, 7, 10,
 13, 14 or 12), and its times and bound on that path's inputs (phase 3,
-6, 9 or 12); ``ms`` is the device time, ``issue_ms`` the issue time.
+6, 9 or 12); ``ms`` is the device time, ``issue_ms`` the issue time,
+``library_ms`` the ``torch.sort`` yardstick of the two sorts (null for
+the other kernels).
 Any failure raises, exits non-zero and prints no ok line;
 with no card, or without the rest of the repository beside it, it fails
 at once.
@@ -442,12 +447,13 @@ PHASE5_STOP_S = 5
 PHASE8_STOP_S = 2
 
 # the kernels of each main path
-PHOLD_PATH = ("extract_slots", "phold_forward", "audit_commit", "spec_check")
+PHOLD_PATH = ("window_sort", "extract_slots", "phold_forward",
+              "audit_commit", "spec_check", "pool_merge")
 # every send through the stack takes nic_tx (the direct send), every
 # arrival nic_rx
-LOOP_PATH = ("extract_slots", "audit_commit", "loop_select", "loop_route",
-             "codel_dequeue", "ring_append", "spec_check", "nic_tx",
-             "nic_rx")
+LOOP_PATH = ("window_sort", "extract_slots", "audit_commit", "loop_select",
+             "loop_route", "codel_dequeue", "ring_append", "spec_check",
+             "nic_tx", "nic_rx", "pool_merge")
 # config 2 never queues at a router (1 Gbit, 7 clients a server), so no
 # host takes a receive-pump event and codel_dequeue's handler never runs;
 # its UDP arrivals are batched behind nic_gate
@@ -480,6 +486,8 @@ THREEFRY_OPS = 20 * 5 + 5 * 3 + 2
 UNIFORM_OPS = 2 * THREEFRY_OPS + 3
 
 REPLACES = {
+    "window_sort": "shadow_tpu/core/engine.py:447",
+    "pool_merge": "shadow_tpu/core/engine.py:710",
     "extract_slots": "shadow_tpu/core/engine.py:388",
     "phold_forward": "shadow_tpu/net/apps.py:207",
     "audit_commit": "shadow_tpu/obs/audit.py:76",
@@ -503,7 +511,10 @@ REPLACES = {
 
 # the entry functions whose name is not their kernel's with "_kernel"
 ENTRIES = {"plan": "loop_select", "apply": "loop_select",
-           "spec_init": "spec_check"}
+           "spec_init": "spec_check", "window_count": "window_sort",
+           "window_pass": "window_sort", "window_place": "window_sort",
+           "merge_count": "pool_merge", "merge_first_pass": "pool_merge",
+           "merge_pass": "pool_merge"}
 
 
 def fail(msg: str) -> None:
@@ -601,6 +612,9 @@ IN_PLACE_ROUNDS = 11
 def clone_arg(x):
     if isinstance(x, kernels.Boxes):
         return clone_boxes(x)
+    if isinstance(x, list):  # the merge's blocks, nic_tx's counters
+        return [type(b)(*map(clone_arg, b)) if isinstance(b, tuple)
+                else clone_arg(b) for b in x]
     return x.clone() if isinstance(x, torch.Tensor) else x
 
 
@@ -702,22 +716,6 @@ def bound(bytes_moved: int, ops: int):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def merge_bound(sim) -> float:
-    """Milliseconds: the least time of one window's merge (B2, a stable
-    sort by time and gathers) on this simulation's shapes: every candidate
-    row read once (the tail's C rows, and the H·K emission rows of the
-    matrix path or the H·(Kc + O + B) dense cells and box slots of the
-    loop path) and the next pool's C rows written once; a row is its
-    time, four int32 columns and its packed payload."""
-    H, C = sim.num_hosts, sim.state.pool.capacity
-    row = 8 + 4 * 4 + 8 * sim.state.pool.payload.shape[1]
-    if sim.matrix_handler is not None:
-        cand = H * sim.K
-    else:
-        cand = H * (sim.K + 1 + sim.O + sim.B)
-    return bound((C + cand + C) * row, 0)[0]
-
-
 def kernel_bound(name: str, args, kw, out):
     """(ms, "bytes" or "operations"): the least time the card could take
     for this call's function on this call's data. Bytes: every input the
@@ -725,6 +723,24 @@ def kernel_bound(name: str, args, kw, out):
     slot the call leaves as it was is neither, so the out-of-place copies
     the engine's functional state makes are not counted. Operations: the
     32-bit integer work at the float32 peak."""
+    if name == "window_sort":
+        # the pool's four key columns read; s_k1 and perm over N written
+        return bound(nbytes(*args[:4]) + nbytes(*out), 0)
+    if name == "pool_merge":
+        # each candidate's time read, but for a row behind its host's
+        # cursor (empty by the cursor alone), and each cursor; the other
+        # five columns of the C rows kept read (a row past C is never
+        # read again); the next pool and the dropped count written
+        blocks, C = args[0], int(args[1])
+        reads = 0
+        for b in blocks:
+            n, cut = b.time.shape[0], getattr(b, "cut", None)
+            if cut is not None:
+                n -= int(cut.clamp(0, n // cut.shape[0]).sum())
+                reads += nbytes(cut)
+            reads += 8 * n
+        row = 8 + 4 * 4 + 8 * blocks[0].payload.shape[-1]
+        return bound(reads + C * (row - 8) + nbytes(*out), 0)
     if name == "extract_slots":
         s_k1, perm, p_t = args[0], args[1], args[2]
         H, Kc, PP = args[8], args[9], args[7].shape[1]
@@ -909,23 +925,36 @@ def phase_kernels(card: str) -> dict:
     H, K = sim.num_hosts, sim.K
     results = {}
 
+    # K19: the window's first sort, its keys built from the pool's columns
+    pool, C = st.pool, st.pool.capacity
+    wargs = (pool.time, pool.dst, pool.src, pool.seq, ws, we, H, K)
+    keys = kernels.window_sort_plain(*wargs)
+    err = max_abs_err(kernels.window_sort(*wargs), keys)
+    results["window_sort"] = dict(
+        err=err, bound=kernel_bound("window_sort", wargs, {}, keys),
+        shape=f"C={C} H={H} Kc={K} N={keys[0].shape[0]}",
+        library_ms=library_ms("window_sort", wargs),
+        **kernel_times(lambda: kernels.window_sort(*wargs),
+                       lambda: kernels.window_sort_plain(*wargs)),
+    )
+
     # K3: extract_slots places the rows of the window's first sort
-    pool = st.pool
-    xargs = (*engine.window_keys(pool, ws, we, H, K), pool.time, pool.dst,
-             pool.src, pool.seq, pool.kind, pool.payload, H, K)
+    xargs = (*keys, pool.time, pool.dst, pool.src, pool.seq, pool.kind,
+             pool.payload, H, K)
     N = xargs[0].shape[0]
     want = kernels.extract_slots_plain(*xargs)
     err = max_abs_err(flat_extract(kernels.extract_slots(*xargs)),
                       flat_extract(want))
     results["extract_slots"] = dict(
         err=err, bound=kernel_bound("extract_slots", xargs, {}, want),
-        shape=f"N={N} C={pool.capacity} Kc={K}",
+        shape=f"N={N} C={C} Kc={K}",
         **kernel_times(lambda: kernels.extract_slots(*xargs),
                        lambda: kernels.extract_slots_plain(*xargs)),
     )
 
     # K1 / K2 on the window's dense matrix
-    dense, _ = engine.dense_extract(st.pool, ws, we, H, K, kernels.PLAIN_OPS)
+    dense, tail = engine.dense_extract(st.pool, ws, we, H, K,
+                                       kernels.PLAIN_OPS)
     h = st.host
     fargs = (dense.time, dense.payload, st.rng_keys, h.rng_counter,
              h.seq_next, h.gid, h.vertex, p.latency_vv, p.reliability_vv,
@@ -968,66 +997,86 @@ def phase_kernels(card: str) -> dict:
         **kernel_times(lambda: kernels.spec_check(*sargs),
                        lambda: kernels.spec_check_plain(*sargs)),
     )
+
+    # K20: the window's merge of the tail and the emissions
+    margs = ([tail, fw], C)
+    want = kernels.pool_merge_plain(*margs)
+    err = max_abs_err(kernels.pool_merge(*margs), want)
+    results["pool_merge"] = dict(
+        err=err, bound=kernel_bound("pool_merge", margs, {}, want),
+        shape=(f"M={tail.time.shape[0] + fw.time.shape[0]} C={C} "
+               f"live={int((want.time != NEVER).sum())} "
+               f"dropped={int(want.dropped)}"),
+        library_ms=library_ms("pool_merge", margs),
+        **kernel_times(lambda: kernels.pool_merge(*margs),
+                       lambda: kernels.pool_merge_plain(*margs)),
+    )
     for name, r in results.items():
+        lib = ("" if "library_ms" not in r else
+               f" library_ms={r['library_ms']:.6f} (torch.sort)")
         print(f"[{card}] phase 3 {name}: {r['shape']} max_abs_err="
               f"{r['err']} kernel_ms={r['ms']:.6f} issue_ms="
               f"{r['issue_ms']:.6f} (rounds {issue_rounds(r)}) "
-              f"plain_ms={r['plain_ms']:.6f} "
+              f"plain_ms={r['plain_ms']:.6f}{lib} "
               f"bound_ms={r['bound'][0]:.6f} "
               f"({r['bound'][1]})", flush=True)
         if r["err"] != 0:
             fail(f"{name} disagrees with its plain version on the card")
 
-    # what K3 replaced: the parent's ops after its slot kernel (the stable
-    # sort by slot, the gathers of perm and of the six columns from the
-    # pool and the fillers), timed on the same rows
-    slot = kernels.dense_slots(xargs[0], H, K)
-    parent = lambda: kernels.place_rows(slot, *xargs[1:])  # noqa: E731
-    extract = lambda: engine.dense_extract(pool, ws, we, H, K)  # noqa: E731
-    keys = lambda: engine.window_keys(pool, ws, we, H, K)  # noqa: E731
-    (n_keys, _), (n_parent, parent_dev), (n_now, _) = (
-        device_profile(f) for f in (keys, parent, extract))
-    r = results["extract_slots"]
-    print(f"[{card}] phase 3 extract_slots replaces the parent's placement "
-          f"ops (slot sort + gathers + cats): events_ms="
-          f"{time_ms(parent, 20):.6f} (20 calls back to back), device_ms="
-          f"{parent_dev:.6f} (one call's kernels and copies, profiled), "
-          f"against the kernel's device_ms={r['ms']:.6f} issue_ms="
-          f"{r['issue_ms']:.6f}", flush=True)
-    print(f"[{card}] phase 3 device launches of one dense_extract "
-          f"(torch.profiler: kernels, copies, sets): this tree {n_now} "
-          f"(window_keys {n_keys} + extract_slots {n_now - n_keys}); the "
-          f"parent {n_keys + n_parent + 1} (window_keys {n_keys}, its slot "
-          f"kernel 1 assumed, not profiled: one launch a call of its "
-          f"wrapper; the placement ops {n_parent})", flush=True)
+    # the device launches of one dense_extract and of one merge, through
+    # the kernels and as the parent ran them (the two torch sorts and
+    # their gathers before extract_slots; the merge's cat, sort and
+    # gathers)
+    parent = kernels.KERNEL_OPS._replace(
+        window_sort=kernels.window_sort_plain,
+        pool_merge=kernels.pool_merge_plain)
+    calls = {
+        "dense_extract": lambda: engine.dense_extract(pool, ws, we, H, K),
+        "dense_extract parent": lambda: engine.dense_extract(
+            pool, ws, we, H, K, parent),
+        "merge": lambda: engine.merge(tail, fw, C),
+        "merge parent": lambda: engine.merge(tail, fw, C, parent),
+    }
+    prof = {k: device_profile(f) for k, f in calls.items()}
+    print(f"[{card}] phase 3 device launches (torch.profiler: kernels, "
+          f"copies, sets) and their device ms, one call each: "
+          + json.dumps({k: {"launches": n, "device_ms": round(ms, 6)}
+                        for k, (n, ms, _) in prof.items()}), flush=True)
+    print(f"[{card}] phase 3 device us and launches by entry function, "
+          f"one call each: " + json.dumps(
+              {k: by_entry(prof[k][2]) for k in ("dense_extract", "merge")}),
+          flush=True)
 
     # the window step's parts, on the same window (no kernel count kept)
-    tail_dense = engine.dense_extract(st.pool, ws, we, H, K)
-    fw = kernels.phold_forward(*fargs, **fkw)
     parts = {
-        "window_keys (2 sorts + gathers)": keys,
-        "dense_extract (all of extract)": extract,
+        "window_keys (window_sort)": lambda: kernels.window_sort(*wargs),
+        "window_keys parent (2 sorts + gathers)":
+            lambda: kernels.window_sort_plain(*wargs),
+        "dense_extract (all of extract)": calls["dense_extract"],
         "phold_forward": lambda: kernels.phold_forward(*fargs, **fkw),
         "audit_commit": lambda: kernels.audit_commit(*cargs),
-        "merge (1 sort + gathers)": lambda: engine.merge(
-            tail_dense[1], fw, st.pool.capacity),
+        "merge (pool_merge)": calls["merge"],
+        "merge parent (1 sort + gathers)": calls["merge parent"],
         f"torch.sort stable int64 N={N}": lambda: torch.sort(
             xargs[0], stable=True),
     }
     parts_ms = {k: time_ms(f, 20) for k, f in parts.items()}
-    # what dense_extract costs after its key sorts is one extract_slots
-    # call: its issue time on precomputed keys, under inference_mode as
-    # Simulation.run calls it (the parent's placement ops beside it)
+    # each call's issue time under inference_mode, as Simulation.run
+    # calls them
     with torch.inference_mode():
-        after = issue_times(lambda: kernels.extract_slots(*xargs))
-        before = issue_times(parent)
-    parts_ms["dense_extract after window_keys"] = after["issue_ms"]
+        issue = {
+            "window_sort": issue_times(lambda: kernels.window_sort(*wargs)),
+            "extract_slots": issue_times(
+                lambda: kernels.extract_slots(*xargs)),
+            "pool_merge": issue_times(lambda: kernels.pool_merge(*margs)),
+        }
+    for k, r in issue.items():
+        parts_ms[f"{k} issue under inference_mode"] = r["issue_ms"]
     print(f"[{card}] phase 3 window breakdown (ms): "
           + json.dumps({k: round(v, 6) for k, v in parts_ms.items()})
-          + f" (dense_extract after window_keys: extract_slots' issue "
-          f"time under inference_mode, rounds {issue_rounds(after)}; the "
-          f"parent's placement ops so timed {before['issue_ms']:.6f}, "
-          f"rounds {issue_rounds(before)})", flush=True)
+          + " (issue rounds: " + "; ".join(
+              f"{k} {issue_rounds(r)}" for k, r in issue.items()) + ")",
+          flush=True)
     kernels.reset_launches()
     return results
 
@@ -1065,6 +1114,10 @@ def bench_run(card: str, ops, label: str, shape: dict = BENCH):
 def activity(name: str, args, out) -> int:
     """How much work a captured call did: the call phase 6 keeps is the
     busiest of the window."""
+    if name == "window_sort":
+        return int((args[0] < args[5]).sum())  # rows before the window end
+    if name == "pool_merge":
+        return int((out.time != NEVER).sum())  # live rows kept
     if name == "extract_slots":
         return int((out.dense.time != NEVER).sum())  # events extracted
     if name == "audit_commit":
@@ -1372,8 +1425,9 @@ def device_rows(prof) -> list:
 
 
 def device_profile(fn) -> tuple:
-    """(device launches (kernels, copies, sets), their device ms) of one
-    call of fn, warmed, from torch.profiler."""
+    """(device launches (kernels, copies, sets), their device ms, the
+    profile's rows (``device_rows``)) of one call of fn, warmed, from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1383,7 +1437,19 @@ def device_profile(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
     rows = device_rows(prof)
-    return sum(r[2] for r in rows), sum(r[0] for r in rows) / 1e3
+    return sum(r[2] for r in rows), sum(r[0] for r in rows) / 1e3, rows
+
+
+def by_entry(rows) -> dict:
+    """{entry function (or the copy's or set's name): [device us,
+    launches]} of a profile's rows."""
+    out: dict = {}
+    for us, key, n in rows:
+        m = re.search(r"\w+_kernel\b", key)
+        t = out.setdefault(m.group(0) if m else key[:40], [0.0, 0])
+        t[0] = round(t[0] + us, 3)
+        t[1] += n
+    return out
 
 
 def port_kernels(rows) -> dict:
@@ -1437,6 +1503,13 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
                 fail(f"{phase}: the synthetic drop-mode state dropped none")
         if name == "extract_slots":
             extra = f" N={args[0].shape[0]} C={args[2].shape[0]} Kc={args[9]}"
+        if name == "window_sort":
+            extra = (f" C={args[0].shape[0]} H={args[6]} Kc={args[7]} "
+                     f"N={got[0].shape[0]}")
+        if name == "pool_merge":
+            extra = (f" blocks={len(args[0])} M="
+                     f"{sum(b.time.shape[0] for b in args[0])} C={args[1]} "
+                     f"dropped={int(want.dropped)}")
         if name in BRANCHES:
             hosts = {b: int(((want.flags >> bit) & 1).sum())
                      for b, bit in BRANCHES[name].items()}
@@ -1450,6 +1523,9 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
                               lambda: plain(*args, **kw)))
         results[label] = dict(err=err, bound=b, **times)
         r = results[label]
+        if name in SORTS:
+            r["library_ms"] = library_ms(name, args)
+            extra += f" library_ms={r['library_ms']:.6f} (torch.sort)"
         print(f"[{card}] {phase} {label}: max_abs_err={err}{extra} "
               f"kernel_ms={r['ms']:.6f} issue_ms={r['issue_ms']:.6f} "
               f"(rounds {issue_rounds(r)}) "
@@ -1460,6 +1536,27 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
         if err != 0:
             fail(f"{label} disagrees with its plain version on the card")
     return results
+
+
+# the two sorts, which have one torch.sort call as their yardstick
+SORTS = ("window_sort", "pool_merge")
+
+
+def sort_keys(name: str, args) -> torch.Tensor:
+    """The keys of the one ``torch.sort(stable=True)`` beside a sort: the
+    k1 column of window_sort's N rows (pool rows and fillers; the JAX
+    package's second key is a second sort that this leaves out), or the
+    time of every candidate row of the merge."""
+    if name == "window_sort":
+        return kernels.window_sort_keys(*args)[0]
+    return torch.cat([kernels.block_rows(b)[0] for b in args[0]])
+
+
+def library_ms(name: str, args) -> float:
+    """``library_ms``: one ``torch.sort(stable=True)`` of the sort's keys,
+    CUDA events over 20 calls back to back, warmed."""
+    keys = sort_keys(name, args)
+    return time_ms(lambda: torch.sort(keys, stable=True), 20)
 
 
 def check_in_place(phase: str, label: str, args, work, got, want) -> int:
@@ -1904,12 +2001,13 @@ def compiler_view(reports: dict) -> dict:
     """{kernel: {entry function: registers, shared memory bytes, spill
     bytes (stores + loads)}} of the matrix path's extract_slots and
     phold_forward, the micro-step's two kernels, the in-place net-stack
-    kernels and the NIC's admission kernels, from nvcc's -Xptxas -v
-    reports."""
+    kernels, the NIC's admission kernels and the window's two sorts, from
+    nvcc's -Xptxas -v reports."""
     view = {}
     for name in ("extract_slots", "phold_forward", "loop_select",
                  "loop_route", "ring_append", "tcp_ack",
-                 "tcp_reorder", "tcp_out", "nic_tx", "nic_rx", "nic_gate"):
+                 "tcp_reorder", "tcp_out", "nic_tx", "nic_rx", "nic_gate",
+                 "window_sort", "pool_merge"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -2454,13 +2552,6 @@ def main() -> None:
     t_opt = time.perf_counter()
     opt_results, launches4, launchesm, launches_nic = optimistic_phases(card)
 
-    bounds = {name: merge_bound(build_simulation(cfg))
-              for name, cfg in (("config2", CONFIG2), ("config3", CONFIG3),
-                                ("config4", CONFIG4))}
-    bounds["phold"] = merge_bound(build_phold_flagship(**BENCH))
-    print(f"[{card}] merge (B2) bytes bound per window, ms: "
-          + json.dumps(bounds), flush=True)
-
     # one entry for each kernel on each main path: its launches in that
     # path's run, and its times and bound on that path's inputs
     paths = (("phold", PHOLD_PATH, launches, results),
@@ -2484,7 +2575,7 @@ def main() -> None:
             "plain_ms": res[k.name]["plain_ms"],
             "bound_ms": res[k.name]["bound"][0],
             "bound_by": res[k.name]["bound"][1],
-            "library_ms": None,
+            "library_ms": res[k.name].get("library_ms"),
         }
         for k in kernels.KERNELS
         for path, on_path, counts, res in paths if k.name in on_path

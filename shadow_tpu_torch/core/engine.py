@@ -14,9 +14,10 @@ chooses it:
 
 One matrix window:
 
-1. EXTRACT (``dense_extract``): a stable 2-key sort of the pool plus K
-   filler rows per host on the packed keys ``run_key << 44 | dt`` and
-   ``src << 32 | seq``; the kernel ``extract_slots`` then moves each
+1. EXTRACT (``dense_extract``): the kernel ``window_sort``, a stable
+   2-key sort of the pool plus K filler rows per host on the packed keys
+   ``run_key << 44 | dt`` and ``src << 32 | seq``, built from the pool's
+   columns on the card; the kernel ``extract_slots`` then moves each
    sorted row to its place: the first K rows of each host run to the
    ``[H, K]`` matrix, every other row, in sorted order, to the tail (the
    JAX package's rank scan and second sort by dense slot, in closed
@@ -25,8 +26,9 @@ One matrix window:
    ``phold_forward``) emits one numbered row per dense cell.
 3. COMMIT: the kernel ``audit_commit`` folds the window into the audit
    chain and the per-host counts and frontiers.
-4. MERGE: a stable sort by time of tail ∪ emissions, truncated to the
-   pool capacity; rows past it are counted as ``pool_overflow_dropped``.
+4. MERGE (kernel ``pool_merge``): a stable sort by time of tail ∪
+   emissions, truncated to the pool capacity; rows past it are counted as
+   ``pool_overflow_dropped``.
 
 One loop window (``Simulation.step_loop``): the same extraction with
 Kc = K + 1 columns (column K only exposes each host's earliest deferred
@@ -58,11 +60,13 @@ Both paths end by setting ``xmit_min``, the speculation-violation signal
 destination's progress clock ``host.done_t``. Conservative windows leave
 it NEVER by construction.
 
-The sorts are ``torch.sort(stable=True)``; a stable sort by k2 followed by
-a stable sort by k1 is ``lax.sort(num_keys=2, is_stable=True)``. The
-conservative driver (``run``) is a host loop with one device-to-host read
-per window, and it reproduces ``make_run_to``'s window bounds exactly:
-``ws = min(pool.time)``, ``we = min(ws + runahead, stop)``. The optimistic
+The plain versions of the two sorts are ``torch.sort(stable=True)``: a
+stable sort by k2 followed by a stable sort by k1 is
+``lax.sort(num_keys=2, is_stable=True)``; on the card each sort is one
+hand-written radix sort. The conservative driver (``run``) is a host
+loop with one device-to-host read per window, and it reproduces
+``make_run_to``'s window bounds exactly: ``ws = min(pool.time)``,
+``we = min(ws + runahead, stop)``. The optimistic
 driver (``run_optimistic``, the JAX package's ``make_attempt`` and
 ``Simulation.run_optimistic``) speculates windows of up to ``factor``
 runaheads: an attempt steps a snapshot of the committed state until the
@@ -97,8 +101,6 @@ from shadow_tpu_torch.obs import audit as audit_mod
 from shadow_tpu_torch.obs import counters as obs_mod
 
 NEVER = simtime.NEVER
-DT_BITS = kernels.DT_BITS
-DT_MAX = kernels.DT_MAX
 M32 = rng_mod.M32
 
 
@@ -189,27 +191,13 @@ def red_zone(capacity: int) -> int:
 
 
 def window_keys(pool: EventPool, win_start: int, win_end: int, H: int,
-                Kc: int):
-    """The window's first sort. Returns (s_k1, perm): the sorted k1 keys of
-    the C pool rows and H·Kc filler rows, and for each sorted position the
-    row it came from (pool rows first, then fillers, host-major)."""
-    C = pool.capacity
-    N = C + H * Kc
-    dev = pool.time.device
-    inwin = (pool.time < win_end) & (pool.dst >= 0) & (pool.dst < H)
-    run_key = torch.where(inwin, pool.dst.to(torch.int64), H)
-    dt = (pool.time - win_start).clamp(0, DT_MAX)
-    k1 = torch.empty(N, dtype=torch.int64, device=dev)
-    k1[:C] = (run_key << DT_BITS) | dt
-    hosts = torch.arange(H, dtype=torch.int64, device=dev)
-    k1[C:] = ((hosts << DT_BITS) | DT_MAX).repeat_interleave(Kc)
-    k2 = torch.zeros(N, dtype=torch.int64, device=dev)
-    k2[:C] = (pool.src.to(torch.int64) << 32) | (
-        pool.seq.to(torch.int64) & M32
-    )
-    p2 = torch.sort(k2, stable=True).indices
-    s_k1, p1 = torch.sort(k1[p2], stable=True)
-    return s_k1, p2[p1]
+                Kc: int, ops: kernels.WindowOps = kernels.KERNEL_OPS):
+    """The window's first sort (``window_sort``). Returns (s_k1, perm): the
+    sorted k1 keys of the C pool rows and H·Kc filler rows, and for each
+    sorted position the row it came from (pool rows first, then fillers,
+    host-major)."""
+    return ops.window_sort(pool.time, pool.dst, pool.src, pool.seq,
+                           win_start, win_end, H, Kc)
 
 
 def dense_extract(pool: EventPool, win_start: int, win_end: int, H: int,
@@ -219,34 +207,29 @@ def dense_extract(pool: EventPool, win_start: int, win_end: int, H: int,
     the first sort, then ``extract_slots`` places every sorted row. Filler
     rows are time NEVER, dst = their host, src = seq = kind = 0 and a zero
     payload; those not extracted ride the tail in sorted order."""
-    s_k1, perm = window_keys(pool, win_start, win_end, H, Kc)
+    s_k1, perm = window_keys(pool, win_start, win_end, H, Kc, ops)
     return ops.extract_slots(s_k1, perm, pool.time, pool.dst, pool.src,
                              pool.seq, pool.kind, pool.payload, H, Kc)
 
 
-def merge_rows(blocks, capacity: int):
-    """The next pool: a stable sort by time of the blocks' rows in block
-    order (the sort's ties depend on it), truncated to ``capacity``. Each
-    block has ``time``, ``dst``, ``src``, ``seq``, ``kind`` and a packed
-    ``payload``. Returns (pool, rows dropped past capacity)."""
-    m_t = torch.cat([b.time for b in blocks])
-    s_t, order = torch.sort(m_t, stable=True)
-    keep = order[:capacity]
-
-    def col(name):
-        return torch.cat([getattr(b, name) for b in blocks])[keep]
-
-    pool = EventPool(
-        time=s_t[:capacity], dst=col("dst"), src=col("src"), seq=col("seq"),
-        kind=col("kind"), payload=col("payload"),
-    )
-    dropped = (s_t[capacity:] != NEVER).sum()
-    return pool, dropped
+def merge_rows(blocks, capacity: int,
+               ops: kernels.WindowOps = kernels.KERNEL_OPS):
+    """The next pool (``pool_merge``): a stable sort by time of the blocks'
+    rows in block order (the sort's ties depend on it), truncated to
+    ``capacity``. Each block has ``time``, ``dst``, ``src``, ``seq``,
+    ``kind`` and a packed ``payload`` (``kernels.MergeBlock``: a dst a
+    host and a cursor of consumed rows are read in place). Returns (pool,
+    rows dropped past capacity)."""
+    m = ops.pool_merge(blocks, capacity)
+    pool = EventPool(time=m.time, dst=m.dst, src=m.src, seq=m.seq,
+                     kind=m.kind, payload=m.payload)
+    return pool, m.dropped
 
 
-def merge(tail: Tail, em, capacity: int):
+def merge(tail: Tail, em, capacity: int,
+          ops: kernels.WindowOps = kernels.KERNEL_OPS):
     """The matrix path's merge: the tail then the emission rows."""
-    return merge_rows([tail, em], capacity)
+    return merge_rows([tail, em], capacity, ops)
 
 
 # handler(state, dense, params, win_end, ops) -> kernels.ForwardOut
@@ -427,7 +410,7 @@ class Simulation:
         c.events_emitted = c.events_emitted + tot[2]
         c.bulk_contract_violations = c.bulk_contract_violations + tot[3]
         c.micro_steps = c.micro_steps + 1
-        state.pool, dropped = merge(tail, fw, state.pool.capacity)
+        state.pool, dropped = merge(tail, fw, state.pool.capacity, ops)
         c.pool_overflow_dropped = c.pool_overflow_dropped + dropped
 
     # -- the micro-step loop path --
@@ -591,28 +574,25 @@ class Simulation:
             state = state.add_counters(
                 events_committed=cm.n_valid.sum(),
                 outbox_stall_deferred=stall, micro_steps=self._one)
-        # merge: unconsumed dense cells, the tail, the outbox, the inbox
-        dcols = torch.arange(Kc, dtype=torch.int32, device=dev)
-        left = dcols[None, :] >= ptr[:, None]
-        gB = gid[:, None]
-        leftover = Tail(
-            time=torch.where(left, dense.time, NEVER).reshape(-1),
-            dst=gB.expand(H, Kc).reshape(-1), src=dense.src.reshape(-1),
+        # merge: unconsumed dense cells (each host's cells before its
+        # cursor are empty), the tail, the outbox, the inbox; a dense or
+        # inbox row's dst is its host
+        leftover = kernels.MergeBlock(
+            time=dense.time.reshape(-1), dst=gid, src=dense.src.reshape(-1),
             seq=dense.seq.reshape(-1), kind=dense.kind.reshape(-1),
-            payload=dense.payload.reshape(H * Kc, PP),
+            payload=dense.payload.reshape(H * Kc, PP), cut=ptr,
         )
         bx = boxes
         outbox = Tail(time=bx.o_t.reshape(-1), dst=bx.o_d.reshape(-1),
                       src=bx.o_s.reshape(-1), seq=bx.o_q.reshape(-1),
                       kind=bx.o_k.reshape(-1),
                       payload=bx.o_p.reshape(-1, PP))
-        inbox = Tail(time=bx.i_t.reshape(-1),
-                     dst=gB.expand(H, self.B).reshape(-1),
-                     src=bx.i_s.reshape(-1), seq=bx.i_q.reshape(-1),
-                     kind=bx.i_k.reshape(-1),
-                     payload=bx.i_p.reshape(-1, PP))
+        inbox = kernels.MergeBlock(
+            time=bx.i_t.reshape(-1), dst=gid, src=bx.i_s.reshape(-1),
+            seq=bx.i_q.reshape(-1), kind=bx.i_k.reshape(-1),
+            payload=bx.i_p.reshape(-1, PP))
         pool, dropped = merge_rows([leftover, tail, outbox, inbox],
-                                   state.pool.capacity)
+                                   state.pool.capacity, ops)
         # JAX checks the outbox and the inbox; an inbox row is always a
         # host's own emission (dst == src), which cannot violate
         xmit = ops.spec_check(outbox.time, outbox.dst, outbox.src,

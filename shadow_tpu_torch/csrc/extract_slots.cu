@@ -23,9 +23,11 @@
 // Bound: bytes. It reads 16 bytes a sorted row (key and perm) and each
 // pool row once, and writes each placed row once. Design: one thread per
 // sorted row. A block stages the keys of its rows and the Kc keys before
-// them (the halo, at most kMaxKc) in shared memory, so the rank is a
+// them (the halo, for Kc up to kMaxKc) in shared memory, so the rank is a
 // binary search of log2(Kc) steps there instead of a search over [0, i]
-// in device memory. The rows of one host run land on consecutive slots
+// in device memory; a larger Kc, whose halo would not fit, runs the same
+// search over the keys in device memory (a second instance of the
+// kernel). The rows of one host run land on consecutive slots
 // and the tail is consecutive, so the stores coalesce; the pool rows are
 // gathered. A warp copies its 32 rows' payload words together, lane j on
 // word j % PP of row j / PP (the row's place and source by shuffle), so
@@ -37,10 +39,17 @@ namespace {
 
 constexpr int kDtBits = 44;
 constexpr int kBlock = 256;
-constexpr int kMaxKc = 1024;  // the C entry refuses a larger Kc
+constexpr int kMaxKc = 1024;  // a larger Kc searches device memory
 constexpr long long kNever = 0x7FFFFFFFFFFFFFFFLL;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// the key of sorted row g, -1 before row 0 (keys are >= 0)
+__device__ __forceinline__ int key_of(const long long* __restrict__ k1,
+                                      long long g, long long n) {
+  return (g >= 0 && g < n) ? (int)(k1[g] >> kDtBits) : -1;
+}
+
+template <bool kHalo>
 __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
     const long long* __restrict__ k1, const long long* __restrict__ perm,
     const long long* __restrict__ p_t, const int* __restrict__ p_d,
@@ -50,31 +59,37 @@ __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
     int* __restrict__ o_q, int* __restrict__ o_k,
     long long* __restrict__ o_p, int* __restrict__ o_d, long long n, int C,
     int H, int Kc, int PP) {
-  // skey[j] is the key of row b0 - Kc + j, -1 before row 0 (keys are >= 0)
-  __shared__ int skey[kBlock + kMaxKc];
+  // with the halo, skey[j] is the key of row b0 - Kc + j
+  __shared__ int skey[kHalo ? kBlock + kMaxKc : 1];
   const long long b0 = (long long)blockIdx.x * kBlock;
-  for (int j = threadIdx.x; j < kBlock + Kc; j += kBlock) {
-    const long long g = b0 - Kc + j;
-    skey[j] = (g >= 0 && g < n) ? (int)(k1[g] >> kDtBits) : -1;
+  if constexpr (kHalo) {
+    for (int j = threadIdx.x; j < kBlock + Kc; j += kBlock)
+      skey[j] = key_of(k1, b0 - Kc + j, n);
+    __syncthreads();
   }
-  __syncthreads();
+  // the key of row i - Kc + j (j in [0, Kc]) from the halo or the keys
+  auto near = [&](int j) {
+    if constexpr (kHalo)
+      return skey[j + threadIdx.x];
+    else
+      return key_of(k1, b0 + threadIdx.x - Kc + j, n);
+  };
   const long long i = b0 + threadIdx.x;
   long long o = -1, r = 0;  // the placed row (-1 past the last) and source
   if (i < n) {
-    const int me = Kc + threadIdx.x;
-    const int key = skey[me];
+    const int key = near(Kc);
     const long long HK = (long long)H * Kc;
-    const bool dense = key < H && skey[threadIdx.x] != key;
+    const bool dense = key < H && near(0) != key;
     if (dense) {  // a dense slot
-      int lo = threadIdx.x + 1, hi = me;  // first of (i - Kc, i] with key
+      int lo = 1, hi = Kc;  // the first of (i - Kc, i] with key, from i - Kc
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (skey[mid] < key)
+        if (near(mid) < key)
           lo = mid + 1;
         else
           hi = mid;
       }
-      o = (long long)key * Kc + (me - lo);
+      o = (long long)key * Kc + (Kc - lo);
     } else {  // HK + the tail index
       o = HK + i - (long long)(key < H ? key + 1 : H) * Kc;
     }
@@ -109,12 +124,12 @@ __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
 extern "C" int extract_slots(const long long* a, void* stream) {
   const long long n = a[14];
   const int C = (int)a[15], H = (int)a[16], Kc = (int)a[17], PP = (int)a[18];
-  if (Kc < 1 || Kc > kMaxKc || n != C + (long long)H * Kc)
-    return (int)cudaErrorInvalidValue;
+  if (Kc < 1 || n != C + (long long)H * Kc) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const long long blocks = (n + kBlock - 1) / kBlock;
-    extract_slots_kernel<<<(unsigned)blocks, kBlock, 0,
-                           (cudaStream_t)stream>>>(
+    auto kernel = Kc <= kMaxKc ? extract_slots_kernel<true>
+                               : extract_slots_kernel<false>;
+    kernel<<<(unsigned)blocks, kBlock, 0, (cudaStream_t)stream>>>(
         (const long long*)a[0], (const long long*)a[1],
         (const long long*)a[2], (const int*)a[3], (const int*)a[4],
         (const int*)a[5], (const int*)a[6], (const long long*)a[7],

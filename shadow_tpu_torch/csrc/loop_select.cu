@@ -28,11 +28,13 @@
 // not per host. Design: one thread a host in blocks of kThreads, over as
 // many blocks as H needs (80 at H = 10,240, 392 at 50,176, 784 at
 // 100,352), in two launches:
-//   1. plan: each thread plans its host once (the tournament templated
-//      on B and unrolled, so its keys stay in registers), writes the
-//      plan (use_inbox, hot, room, slot, batch) and need_hot to a [H]
-//      scratch, and each block writes its sums of need_hot and of the
-//      box rows;
+//   1. plan: each thread plans its host once (for B up to kMaxB the
+//      tournament templated on B and unrolled, so its keys stay in
+//      registers; a wider inbox walks the same tournament's tree from
+//      device memory, a stack of its rounds in local memory), writes
+//      the plan (use_inbox, hot, room, batch), the slot and need_hot to
+//      [H] scratch, and each block writes its sums of need_hot and of
+//      the box rows;
 //   2. apply: each block sums the need of the blocks before it and the
 //      box rows of all blocks (at most a few hundred totals, read from
 //      L2), scans its hosts' need in shared memory, gives each host its
@@ -56,15 +58,15 @@
 namespace {
 
 constexpr long long kNever = 0x7FFFFFFFFFFFFFFFLL;
-constexpr int kMaxB = 32;
+constexpr int kMaxB = 32;  // the widest inbox held in registers
+constexpr int kDepth = 32;  // rounds of a wider inbox's tournament, at most
 constexpr int kThreads = 128;  // hosts a block; kernels.SELECT_BLOCK
 constexpr int kWarps = kThreads / 32;
 // threads of an apply block: four to a host for the output rows
 constexpr int kApply = 4 * kThreads;
 
-// the plan word: use_inbox, hot, room, the inbox slot, the batch size
-constexpr int kUseInbox = 1, kHot = 2, kRoom = 4, kSlotShift = 3,
-              kBulkShift = 8;
+// the plan word: use_inbox, hot, room, the batch size
+constexpr int kUseInbox = 1, kHot = 2, kRoom = 4, kBulkShift = 3;
 
 __device__ __forceinline__ bool key_lt(long long t1, int s1, int q1,
                                        long long t2, int s2, int q2) {
@@ -99,6 +101,7 @@ struct Args {
   long long* totals;  // [blocks, 2]: need_hot, box rows
   int* plan;          // [H] plan words
   int* need;          // [H] need of the hot hosts, 0 elsewhere
+  int* slot;          // [H] the inbox slot of the minimum
   int H, Kc, PP, NK, K, G, B;
   long long win_end, pool_budget;
   int O, bulk_kind, self_excluded, blocks;
@@ -131,6 +134,61 @@ __device__ __forceinline__ void tournament(long long (&tt)[B], int (&ss)[B],
   }
 }
 
+struct Key {
+  long long t;
+  int s, q, i;
+};
+
+// The same tournament over B slots of any width: position p after round
+// r pairs positions p and p + N[r] of round r - 1 (N[r] = ceil(N[r-1] /
+// 2), N[0] = B), or p and the pad where p + N[r] >= N[r-1]; the second
+// wins only when strictly less. Its tree is walked depth first, first
+// half before second, each pending first value on a stack of at most
+// kDepth rounds, so every slot is read once.
+__device__ Key tournament_wide(const Args& a, long long ib, int B) {
+  int N[kDepth + 1];
+  int R = 0;
+  N[0] = B;
+  while (N[R] > 1) {
+    N[R + 1] = (N[R] + 1) / 2;
+    ++R;
+  }
+  int fp[kDepth], fr[kDepth];
+  bool second[kDepth];
+  Key first[kDepth];
+  int sp = 0, p = 0, r = R;
+  for (;;) {
+    while (r > 0) {  // down to the first slot under (p, r)
+      fp[sp] = p;
+      fr[sp] = r;
+      second[sp] = false;
+      ++sp;
+      --r;
+    }
+    Key cur{a.i_t[ib + p], a.i_s[ib + p], a.i_q[ib + p], p};
+    for (;;) {  // up through every pair whose second half is done
+      if (sp == 0) return cur;
+      const int top = sp - 1;
+      if (!second[top]) {
+        const int q = fp[top] + N[fr[top]];
+        if (q < N[fr[top] - 1]) {  // the second half is a subtree
+          first[top] = cur;
+          second[top] = true;
+          p = q;
+          r = fr[top] - 1;
+          break;
+        }
+        if (key_lt(kNever, 0, 0, cur.t, cur.s, cur.q))  // the pad
+          cur = Key{kNever, 0, 0, 0};
+      } else {
+        const Key& f = first[top];
+        if (!key_lt(cur.t, cur.s, cur.q, f.t, f.s, f.q)) cur = f;
+      }
+      --sp;
+    }
+  }
+}
+
 // the sum of v over a block of T threads, in every thread
 template <int T>
 __device__ __forceinline__ long long block_sum(long long v, long long* red) {
@@ -146,6 +204,7 @@ __device__ __forceinline__ long long block_sum(long long v, long long* red) {
   return s;
 }
 
+// B = 0: the inbox is wider than kMaxB (a.B slots)
 template <int B>
 __global__ void __launch_bounds__(kThreads) plan_kernel(Args a) {
   __shared__ long long red[kWarps];
@@ -158,21 +217,34 @@ __global__ void __launch_bounds__(kThreads) plan_kernel(Args a) {
     const long long m_t = (pt < a.K && m_raw != kNever) ? m_raw : kNever;
     const int m_s = a.d_s[cell], m_q = a.d_q[cell], m_k = a.d_k[cell];
 
-    long long tt[B];
-    int ss[B], qq[B], ii[B];
-    const long long ib = (long long)h * B;
+    const long long ib = (long long)h * a.B;
+    long long i_time;
+    int i_src, i_seq, slot;
+    if constexpr (B > 0) {
+      long long tt[B];
+      int ss[B], qq[B], ii[B];
 #pragma unroll
-    for (int b = 0; b < B; ++b) {
-      tt[b] = a.i_t[ib + b];
-      ss[b] = a.i_s[ib + b];
-      qq[b] = a.i_q[ib + b];
-      ii[b] = b;
-      box += tt[b] != kNever;
+      for (int b = 0; b < B; ++b) {
+        tt[b] = a.i_t[ib + b];
+        ss[b] = a.i_s[ib + b];
+        qq[b] = a.i_q[ib + b];
+        ii[b] = b;
+        box += tt[b] != kNever;
+      }
+      tournament<B, B>(tt, ss, qq, ii);
+      i_time = tt[0];
+      i_src = ss[0];
+      i_seq = qq[0];
+      slot = ii[0];
+    } else {
+      for (int b = 0; b < a.B; ++b) box += a.i_t[ib + b] != kNever;
+      const Key m = tournament_wide(a, ib, a.B);
+      i_time = m.t;
+      i_src = m.s;
+      i_seq = m.q;
+      slot = m.i;
     }
     box += a.o_count[h];
-    tournament<B, B>(tt, ss, qq, ii);
-    const long long i_time = tt[0];
-    const int i_src = ss[0], i_seq = qq[0], slot = ii[0];
     const bool use_inbox = key_lt(i_time, i_src, i_seq, m_t, m_s, m_q);
     const long long t = use_inbox ? i_time : m_t;
     const int k = use_inbox ? a.i_k[ib + slot] : m_k;
@@ -203,9 +275,9 @@ __global__ void __launch_bounds__(kThreads) plan_kernel(Args a) {
     const bool room = a.o_count[h] + need <= a.O;
     need_hot = hot ? need : 0;
     a.plan[h] = (use_inbox ? kUseInbox : 0) | (hot ? kHot : 0) |
-                (room ? kRoom : 0) | (slot << kSlotShift) |
-                (n_bulk << kBulkShift);
+                (room ? kRoom : 0) | (n_bulk << kBulkShift);
     a.need[h] = (int)need_hot;
+    a.slot[h] = slot;
   }
   const long long block_need = block_sum<kThreads>(need_hot, red);
   const long long block_box = block_sum<kThreads>(box, red);
@@ -219,8 +291,9 @@ __global__ void __launch_bounds__(kThreads) plan_kernel(Args a) {
 // kApply threads write the block's output rows
 __global__ void __launch_bounds__(kApply) apply_kernel(Args a) {
   __shared__ long long red[kApply / 32];
-  __shared__ int s_word[kThreads];  // verdict, use_inbox, slot, taken batch
+  __shared__ int s_word[kThreads];  // verdict, use_inbox, taken batch
   __shared__ int s_pt[kThreads];
+  __shared__ int s_slot[kThreads];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h0 = blockIdx.x * kThreads, h = h0 + tid;
   const bool mine = tid < kThreads && h < a.H;  // a host of this block
@@ -234,12 +307,13 @@ __global__ void __launch_bounds__(kApply) apply_kernel(Args a) {
   before = block_sum<kApply>(before, red);
   const long long box_used = block_sum<kApply>(box, red);
 
-  int word = 0, pt = 0;
+  int word = 0, pt = 0, slot = 0;
   long long need_hot = 0;
   if (mine) {
     word = a.plan[h];
     need_hot = a.need[h];
     pt = a.ptr[h];
+    slot = a.slot[h];
   }
   // the exclusive prefix of need_hot over the block's hosts
   long long inc = need_hot;
@@ -263,9 +337,9 @@ __global__ void __launch_bounds__(kApply) apply_kernel(Args a) {
     a.valid[h] = v;
     a.stalled[h] = hot && !(room && fits);
     a.ptr_out[h] = (v && !use_inbox) ? pt + 1 + n : pt;
-    s_word[tid] = (v ? 1 : 0) | (use_inbox ? 2 : 0) |
-                  (((word >> kSlotShift) & 31) << 2) | (n << 7);
+    s_word[tid] = (v ? 1 : 0) | (use_inbox ? 2 : 0) | (n << 2);
     s_pt[tid] = pt;
+    s_slot[tid] = slot;
   }
   __syncthreads();
 
@@ -277,12 +351,12 @@ __global__ void __launch_bounds__(kApply) apply_kernel(Args a) {
     const int w = s_word[hl];
     const long long hh = h0 + hl;
     const bool from_inbox = g == 0 && (w & 2);
-    const bool tk = (w & 1) && g <= (w >> 7);
+    const bool tk = (w & 1) && g <= (w >> 2);
     long long t = kNever;
     int s = 0, q = 0, k = 0;
     if (tk) {
       if (from_inbox) {
-        const long long j = hh * a.B + ((w >> 2) & 31);
+        const long long j = hh * a.B + s_slot[hl];
         t = a.i_t[j];
         s = a.i_s[j];
         q = a.i_q[j];
@@ -307,9 +381,9 @@ __global__ void __launch_bounds__(kApply) apply_kernel(Args a) {
     const int w = s_word[hl];
     const long long hh = h0 + hl;
     long long x = 0;
-    if ((w & 1) && g <= (w >> 7)) {
+    if ((w & 1) && g <= (w >> 2)) {
       x = (g == 0 && (w & 2))
-              ? a.i_p[(hh * a.B + ((w >> 2) & 31)) * a.PP + wd]
+              ? a.i_p[(hh * a.B + s_slot[hl]) * a.PP + wd]
               : a.d_p[(hh * a.Kc + s_pt[hl] + g) * a.PP + wd];
     }
     a.take_p[ob * a.PP + i] = x;
@@ -318,7 +392,7 @@ __global__ void __launch_bounds__(kApply) apply_kernel(Args a) {
   for (int i = tid; i < nh * a.B; i += kApply) {
     const int hl = i / a.B, b = i - hl * a.B;
     const int w = s_word[hl];
-    const bool clear = (w & 1) && (w & 2) && b == ((w >> 2) & 31);
+    const bool clear = (w & 1) && (w & 2) && b == s_slot[hl];
     a.inbox_t[ib + i] = clear ? kNever : a.i_t[ib + i];
   }
 }
@@ -330,19 +404,19 @@ void launch_plan(const Args& a, cudaStream_t s) {
   plan_kernel<B><<<a.blocks, kThreads, 0, s>>>(a);
 }
 
-// launch the plan kernel instantiated for this B (1..kMaxB)
+// launch the plan kernel instantiated for this B (1..kMaxB; 0 above)
 template <int... I>
 void launch_plan(int B, const Args& a, cudaStream_t s,
                  std::integer_sequence<int, I...>) {
-  static constexpr PlanLaunch table[] = {&launch_plan<I + 1>...};
-  table[B - 1](a, s);
+  static constexpr PlanLaunch table[] = {&launch_plan<I>...};
+  table[B <= kMaxB ? B : 0](a, s);
 }
 
-// bytes of the scratch for H hosts: the block totals, the plan words
-// and the needs (kernels.loop_select allocates it)
+// bytes of the scratch for H hosts: the block totals, the plan words,
+// the needs and the slots (kernels.loop_select allocates it)
 long long scratch_bytes_for(int H) {
   const long long blocks = (H + kThreads - 1) / kThreads;
-  return 16 * blocks + 8LL * H;
+  return 16 * blocks + 12LL * H;
 }
 
 }  // namespace
@@ -357,7 +431,7 @@ extern "C" int loop_select(
     long long scratch_bytes, int H, int Kc, int B, int PP, int NK, int K,
     int G, long long win_end, long long pool_budget, int O, int bulk_kind,
     int self_excluded, void* stream) {
-  if (B < 1 || B > kMaxB || G < 1 || G - 1 >= (1 << 23) ||
+  if (B < 1 || G < 1 || G - 1 >= (1 << 23) ||
       scratch_bytes < scratch_bytes_for(H))
     return (int)cudaErrorInvalidValue;
   if (H <= 0) return (int)cudaGetLastError();
@@ -371,10 +445,11 @@ extern "C" int loop_select(
          (const int*)gate, (const int*)gid, (const int*)need_by_kind,
          (long long*)take_t, (int*)take_s, (int*)take_q, (int*)take_k,
          (long long*)take_p, (bool*)valid, (bool*)stalled, (int*)ptr_out,
-         (long long*)inbox_t, totals, plan, plan + H, H, Kc, PP, NK, K, G,
+         (long long*)inbox_t, totals, plan, plan + H, plan + 2LL * H, H, Kc,
+         PP, NK, K, G,
          B, win_end, pool_budget, O, bulk_kind, self_excluded, blocks};
   const cudaStream_t s = (cudaStream_t)stream;
-  launch_plan(B, a, s, std::make_integer_sequence<int, kMaxB>{});
+  launch_plan(B, a, s, std::make_integer_sequence<int, kMaxB + 1>{});
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   apply_kernel<<<blocks, kApply, 0, s>>>(a);

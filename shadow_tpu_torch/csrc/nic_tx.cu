@@ -40,34 +40,31 @@
 // Design: one thread a host issues every load it needs in one round, its
 // key pair too (the path table, with several vertices, follows where it
 // is needed), and stores only at the end. The sums go by warp shuffles
-// and shared memory to four threads a block, each of which adds its sum,
-// shifted up by kTicketBits, plus one into an accumulator word in device
-// memory with one atomicAdd: the word's low bits count the blocks that
-// have added, its high bits hold the sum. The thread that finds
-// gridDim.x - 1 blocks counted before its own add is the last; it writes
-// the counter plus the word's sum out and sets the word back to zero for
-// the next launch. So the call stays one launch (a memset of the output
+// and shared memory to four threads a block, each of which adds its sum
+// into an accumulator word in device memory with one atomicAdd; after a
+// fence, one thread a block takes a ticket from a fifth word. The block
+// that takes the last ticket (gridDim.x - 1 before it) finds every sum
+// complete: its four threads take the words' sums, setting them back to
+// zero, write each counter plus its sum out, and zero the ticket for the
+// next launch. So the call stays one launch (a memset of the output
 // before it would be a device operation of its own, about as long as the
 // kernel), with one round trip to the accumulators at its end, and its
-// launches must not overlap (the port runs one stream). The count needs
-// fewer than 2^kTicketBits blocks a launch, so the C entry refuses more
-// than 4,095 blocks (524,160 hosts); and the sum is then exact, since
-// |sum| < 2^51 (each size is an int32 plus a header). Folding the
-// counters in spares the caller four additions, each a launch.
+// launches must not overlap (the port runs one stream). The ticket is a
+// word of its own, so any number of blocks is exact, and each sum keeps
+// all 64 bits (wrapping, as the counters' int64 additions do). Folding
+// the counters in spares the caller four additions, each a launch.
 
 #include "link_common.cuh"
 #include "nic_common.cuh"
 
 namespace {
 
-// the launch's four sums, each shifted up by kTicketBits over the count
-// of blocks that have added to it: zero between launches (the last block
-// to add to a word leaves it so)
+// the launch's four sums and the count of blocks that have added theirs:
+// zero between launches (the last block leaves them so)
 __device__ unsigned long long g_sums[4];
+__device__ unsigned int g_ticket;
 
 constexpr int kWarps = nic::kBlock / 32;
-constexpr int kTicketBits = 12;  // blocks a launch: fewer than 2^12
-constexpr unsigned long long kTicketMask = (1ULL << kTicketBits) - 1;
 
 struct Args {
   const bool* mask;
@@ -146,6 +143,7 @@ __global__ void __launch_bounds__(nic::kBlock) nic_tx_kernel(Args a) {
     sums[3] = remote ? (unsigned long long)size : 0ULL;
   }
   __shared__ unsigned long long part[4][kWarps];
+  __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -157,14 +155,18 @@ __global__ void __launch_bounds__(nic::kBlock) nic_tx_kernel(Args a) {
     const int i = threadIdx.x;
     unsigned long long v = 0;
     for (int j = 0; j < kWarps; ++j) v += part[i][j];
-    const unsigned long long add = (v << kTicketBits) + 1ULL;
-    const unsigned long long old = atomicAdd(&g_sums[i], add);
-    if ((old & kTicketMask) == gridDim.x - 1) {
-      // every other block has added: the word holds the launch's sum
-      a.out[6LL * H + i] =
-          nic::wadd(before, (long long)(old + add) >> kTicketBits);
-      g_sums[i] = 0ULL;
-    }
+    if (v) atomicAdd(&g_sums[i], v);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&g_ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (last && threadIdx.x < 4) {
+    // every other block has added: the words hold the launch's sums
+    const int i = threadIdx.x;
+    const unsigned long long total = atomicExch(&g_sums[i], 0ULL);
+    a.out[6LL * H + i] = nic::wadd(before, (long long)total);
+    if (i == 0) g_ticket = 0u;
   }
 }
 
@@ -202,8 +204,6 @@ extern "C" int nic_tx(const long long* a, void* stream) {
          H};
   // one block at least: with no host it still writes the counters out
   const int blocks = H > 0 ? nic::blocks(H) : 1;
-  // one more would carry the count of blocks into the sums
-  if (blocks > (int)kTicketMask) return (int)cudaErrorInvalidValue;
   nic_tx_kernel<<<blocks, nic::kBlock, 0, (cudaStream_t)stream>>>(k);
   return (int)cudaGetLastError();
 }

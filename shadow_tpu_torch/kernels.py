@@ -1,9 +1,19 @@
 """The window step's hand-written CUDA kernels, their plain PyTorch
 versions, and the build and ctypes binding.
 
-Eighteen kernels carry the window step on the card (sources under
-``csrc/``, one shared library each). The PHOLD matrix path runs the
-first three:
+Twenty kernels carry the window step on the card (sources under
+``csrc/``, one shared library each). Every window of both paths begins
+and ends with two radix sorts:
+
+* ``window_sort`` (K19): the window's first sort — the keys built from
+  the pool's columns and the two stable key sorts of
+  ``shadow_tpu/core/engine.py:_dense_extract``, the filler rows placed
+  without being sorted.
+* ``pool_merge`` (K20): the next pool — the stable sort by time of
+  ``make_window_step``'s ``assemble`` and the loop path's ``finish``,
+  truncated to the capacity, each block of rows read where it lies.
+
+The PHOLD matrix path runs three more:
 
 * ``extract_slots`` (K3): every row of the window's first sort moved to
   its place in the dense window or the tail — the rank scan and the
@@ -142,10 +152,12 @@ class Kernel:
         return os.path.join(CSRC, f"{self.name}.cu")
 
 
-# extract_slots and the NIC's admission kernels take their arguments
-# packed in one host array of int64 (``_PACK``: pointers, strides, sizes;
-# the C entry names them in order) and the stream: one ctypes argument
-# costs more than packing one value
+# extract_slots, the two sorts and the NIC's admission kernels take their
+# arguments packed in one host array of int64 (``_PACK``: pointers,
+# strides, sizes; the C entry names them in order) and the stream: one
+# ctypes argument costs more than packing one value
+WINDOW_SORT = Kernel("window_sort", (ctypes.c_char_p, _P))
+POOL_MERGE = Kernel("pool_merge", (ctypes.c_char_p, _P))
 EXTRACT_SLOTS = Kernel("extract_slots", (ctypes.c_char_p, _P))
 PHOLD_FORWARD = Kernel(
     "phold_forward",
@@ -221,13 +233,17 @@ LINK_SEND = Kernel(
 NIC_TX = Kernel("nic_tx", (ctypes.c_char_p, _P))
 NIC_RX = Kernel("nic_rx", (ctypes.c_char_p, _P))
 NIC_GATE = Kernel("nic_gate", (ctypes.c_char_p, _P))
-_PACK = {"extract_slots": struct.Struct("<19q"),
+# the merge's blocks: at most MERGE_BLOCKS, ten values each
+MERGE_BLOCKS = 4
+_PACK = {"window_sort": struct.Struct("<13q"),
+         "pool_merge": struct.Struct(f"<{12 + 10 * MERGE_BLOCKS}q"),
+         "extract_slots": struct.Struct("<19q"),
          "nic_tx": struct.Struct("<30q"), "nic_rx": struct.Struct("<19q"),
          "nic_gate": struct.Struct("<18q")}
 KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
            LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
            TCP_REORDER, TCP_OUT, SPEC_CHECK, NIC_REFILL, SEND_DEQUEUE,
-           LINK_SEND, NIC_TX, NIC_RX, NIC_GATE)
+           LINK_SEND, NIC_TX, NIC_RX, NIC_GATE, WINDOW_SORT, POOL_MERGE)
 
 
 def reset_launches() -> None:
@@ -327,6 +343,22 @@ def _lib(k: Kernel):
     return getattr(lib, k.name)
 
 
+_scratch: dict = {}
+
+
+def _scratch_bytes(k: Kernel, n: int) -> int:
+    """The scratch bytes the kernel ``k`` needs for ``n`` rows, from its
+    library's ``<name>_scratch`` (the C entry refuses less)."""
+    b = _scratch.get((k.name, n))
+    if b is None:
+        _lib(k)
+        fn = getattr(_libs[k.name], f"{k.name}_scratch")
+        fn.argtypes = [_L]
+        fn.restype = _L
+        b = _scratch[(k.name, n)] = fn(n)
+    return b
+
+
 def _launch(k: Kernel, *args) -> None:
     rc = _lib(k)(*args)
     if rc != 0:
@@ -366,6 +398,201 @@ def _stream(t: torch.Tensor) -> int:
     ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
     making the Stream object)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+# ---------------------------------------------------------------------------
+# K19 window_sort
+# ---------------------------------------------------------------------------
+
+# the hosts the k1 key holds: run_key << DT_BITS stays below 2^63
+WINDOW_MAX_HOSTS = 1 << (63 - DT_BITS)
+
+
+def _window_hosts(H: int) -> None:
+    if not 0 < H < WINDOW_MAX_HOSTS:
+        raise ValueError(f"window_sort: the k1 key holds run keys below "
+                         f"{WINDOW_MAX_HOSTS} (run_key << {DT_BITS} in "
+                         f"int64), got H={H}")
+
+
+def window_sort_keys(time, dst, src, seq, win_start: int, win_end: int,
+                     H: int, Kc: int):
+    """(k1, k2) [N = C + H·Kc] int64: the keys of the C pool rows, then of
+    the H·Kc filler rows, host-major."""
+    _window_hosts(H)
+    C = time.shape[0]
+    N = C + H * Kc
+    dev = time.device
+    inwin = (time < win_end) & (dst >= 0) & (dst < H)
+    run_key = torch.where(inwin, dst.to(torch.int64), H)
+    dt = (time - win_start).clamp(0, DT_MAX)
+    k1 = torch.empty(N, dtype=torch.int64, device=dev)
+    k1[:C] = (run_key << DT_BITS) | dt
+    hosts = torch.arange(H, dtype=torch.int64, device=dev)
+    k1[C:] = ((hosts << DT_BITS) | DT_MAX).repeat_interleave(Kc)
+    k2 = torch.zeros(N, dtype=torch.int64, device=dev)
+    k2[:C] = (src.to(torch.int64) << 32) | (seq.to(torch.int64) & rng.M32)
+    return k1, k2
+
+
+def window_sort_plain(time, dst, src, seq, win_start: int, win_end: int,
+                      H: int, Kc: int):
+    """Plain version: the keys (``window_sort_keys``), then a stable sort
+    by k2 and a stable sort by k1, which is the JAX package's
+    ``lax.sort(num_keys=2, is_stable=True)``."""
+    k1, k2 = window_sort_keys(time, dst, src, seq, win_start, win_end, H,
+                              Kc)
+    p2 = torch.sort(k2, stable=True).indices
+    s_k1, p1 = torch.sort(k1[p2], stable=True)
+    return s_k1, p2[p1]
+
+
+def window_sort(time, dst, src, seq, win_start: int, win_end: int, H: int,
+                Kc: int):
+    """The window's first sort (``engine.window_keys``): from the pool's
+    ``time``, ``dst``, ``src`` and ``seq`` columns (C rows), the keys
+    k1 = run_key << 44 | clip(time - win_start, 0, DT_MAX) and
+    k2 = src << 32 | seq of the pool rows and of H·Kc filler rows (host h's
+    Kc rows k1 = h << 44 | DT_MAX, k2 = 0, after the pool rows), sorted by
+    (k1, k2, row). Returns (s_k1, perm) [N = C + H·Kc] int64: the sorted k1
+    and the row each place came from. On the card: one C entry, its keys
+    built on the card, only the pool rows sorted."""
+    args = (time, dst, src, seq)
+    if not _on_card(*args):
+        return window_sort_plain(*args, win_start, win_end, H, Kc)
+    _window_hosts(H)
+    C = time.shape[0]
+    ins = (_check(time, torch.int64, (C,), "time"),
+           _check(dst, torch.int32, (C,), "dst"),
+           _check(src, torch.int32, (C,), "src"),
+           _check(seq, torch.int32, (C,), "seq"))
+    N = C + H * Kc
+    out = torch.empty(2 * N, dtype=torch.int64, device=time.device)
+    scratch = torch.empty(_scratch_bytes(WINDOW_SORT, C), dtype=torch.uint8,
+                          device=time.device)
+    base = out.data_ptr()
+    _launch(WINDOW_SORT, _PACK["window_sort"].pack(
+        *ins, base, base + 8 * N, scratch.data_ptr(), scratch.numel(), C, H,
+        Kc, int(win_start), int(win_end)), _stream(time))
+    s_k1, perm = out.split(N)
+    return s_k1, perm
+
+
+# ---------------------------------------------------------------------------
+# K20 pool_merge
+# ---------------------------------------------------------------------------
+
+
+class MergeBlock(NamedTuple):
+    """One block of the merge's candidate rows, read where it lies:
+    ``time``, ``src``, ``seq``, ``kind`` [n] and ``payload`` [n, PP];
+    ``dst`` [n], or one value a host ([H], each host's n / H rows in turn);
+    ``cut`` (None or [H] int32): row j of host h's run is empty (time
+    NEVER) where j < cut[h]."""
+
+    time: torch.Tensor
+    dst: torch.Tensor
+    src: torch.Tensor
+    seq: torch.Tensor
+    kind: torch.Tensor
+    payload: torch.Tensor
+    cut: torch.Tensor | None = None
+
+
+class Merged(NamedTuple):
+    """The next pool's columns, [C] each (``payload`` [C, PP]), and the
+    rows dropped past the capacity (0-d int64)."""
+
+    time: torch.Tensor
+    dst: torch.Tensor
+    src: torch.Tensor
+    seq: torch.Tensor
+    kind: torch.Tensor
+    payload: torch.Tensor
+    dropped: torch.Tensor
+
+
+def block_rows(b):
+    """A block's six columns, one row each: ``cut`` applied to the time
+    and a host's dst repeated over its run."""
+    n = b.time.shape[0]
+    t, d = b.time, b.dst
+    cut = getattr(b, "cut", None)
+    if cut is not None:
+        w = n // cut.shape[0]
+        j = torch.arange(w, dtype=torch.int32, device=t.device)
+        t = torch.where(j[None, :] >= cut[:, None], t.view(-1, w),
+                        NEVER).reshape(-1)
+    if d.shape[0] != n:
+        d = d.repeat_interleave(n // d.shape[0])
+    return t, d, b.src, b.seq, b.kind, b.payload
+
+
+def pool_merge_plain(blocks, capacity: int) -> Merged:
+    """Plain version: the blocks' rows concatenated in block order (the
+    sort's ties depend on it), a stable sort by time, the first
+    ``capacity`` rows gathered; dropped counts the rows past it whose time
+    is not NEVER."""
+    cols = list(zip(*(block_rows(b) for b in blocks)))
+    s_t, order = torch.sort(torch.cat(cols[0]), stable=True)
+    keep = order[:capacity]
+    rest = [torch.cat(c)[keep] for c in cols[1:]]
+    return Merged(s_t[:capacity], *rest,
+                  dropped=(s_t[capacity:] != NEVER).sum())
+
+
+def pool_merge(blocks, capacity: int) -> Merged:
+    """The next pool: a stable sort by time of the blocks' rows in block
+    order, truncated to ``capacity``, and the rows dropped past it. Each
+    block has ``time``, ``dst``, ``src``, ``seq``, ``kind``, ``payload``
+    and optionally ``cut`` (``MergeBlock``). On the card: one C entry that
+    reads each block where it lies (at most ``MERGE_BLOCKS``)."""
+    first = blocks[0].time
+    if not _on_card(*(t for b in blocks for t in b if t is not None)):
+        return pool_merge_plain(blocks, capacity)
+    if not 0 < len(blocks) <= MERGE_BLOCKS:
+        raise ValueError(f"pool_merge: 1 to {MERGE_BLOCKS} blocks, got "
+                         f"{len(blocks)}")
+    PP = blocks[0].payload.shape[-1]
+    packed, M = [], 0
+    for i, b in enumerate(blocks):
+        n = b.time.shape[0]
+        cut = getattr(b, "cut", None)
+        nd = b.dst.shape[0]
+        if nd < 1 or n % nd or (cut is not None and n % cut.shape[0]):
+            raise ValueError(f"pool_merge: block {i}'s dst or cut does not "
+                             f"divide its {n} rows")
+        packed += [
+            n, _check(b.time, torch.int64, (n,), f"block {i} time"),
+            _check(b.dst, torch.int32, (nd,), f"block {i} dst"), n // nd,
+            _check(b.src, torch.int32, (n,), f"block {i} src"),
+            _check(b.seq, torch.int32, (n,), f"block {i} seq"),
+            _check(b.kind, torch.int32, (n,), f"block {i} kind"),
+            _check(b.payload, torch.int64, (n, PP), f"block {i} payload"),
+            0 if cut is None else _check(cut, torch.int32, cut.shape,
+                                         f"block {i} cut"),
+            0 if cut is None else n // cut.shape[0]]
+        M += n
+    packed += [0] * (10 * (MERGE_BLOCKS - len(blocks)))
+    C = int(capacity)
+    if M < C:
+        raise ValueError(f"pool_merge: {M} rows for a pool of {C}")
+    dev = first.device
+    # one allocation: time, payload and dropped as int64, then dst, src,
+    # seq and kind as int32
+    buf = torch.empty(C * (1 + PP) + 1 + 2 * C, dtype=torch.int64,
+                      device=dev)
+    scratch = torch.empty(_scratch_bytes(POOL_MERGE, M), dtype=torch.uint8,
+                          device=dev)
+    base = buf.data_ptr()
+    b32 = base + 8 * (C * (1 + PP) + 1)
+    _launch(POOL_MERGE, _PACK["pool_merge"].pack(
+        len(blocks), C, PP, base, b32, b32 + 4 * C, b32 + 8 * C,
+        b32 + 12 * C, base + 8 * C, base + 8 * C * (1 + PP),
+        scratch.data_ptr(), scratch.numel(), *packed), _stream(first))
+    t, p, dropped, i32 = buf.split_with_sizes([C, C * PP, 1, 2 * C])
+    d, s, q, k = i32.view(torch.int32).split(C)
+    return Merged(t, d, s, q, k, p.view(C, PP), dropped[0])
 
 
 # ---------------------------------------------------------------------------
@@ -458,15 +685,13 @@ def extract_slots_plain(s_k1, perm, time, dst, src, seq, kind, payload,
 def extract_slots(s_k1, perm, time, dst, src, seq, kind, payload, H: int,
                   Kc: int) -> Extracted:
     """Place every row of the window's first sort: ``s_k1`` and ``perm``
-    from ``engine.window_keys`` (N = C + H·Kc sorted k1 keys and the row
+    from ``window_sort`` (N = C + H·Kc sorted k1 keys and the row
     each came from: the C pool rows, whose columns follow, then H·Kc
     fillers, host-major). Returns the dense window and the tail, as the
     JAX package's rank scan and second sort leave them."""
     args = (s_k1, perm, time, dst, src, seq, kind, payload)
     if not _on_card(*args):
         return extract_slots_plain(*args, H, Kc)
-    # the C entry refuses a Kc past the keys a block stages before its
-    # rows (``kMaxKc``), and the wrapper raises
     C = time.shape[0]
     PP = payload.shape[-1]
     N = C + H * Kc
@@ -716,8 +941,6 @@ def audit_commit(d_t, d_s, d_k, gid, host_digest, host_events, host_last_t,
 # K4 loop_select
 # ---------------------------------------------------------------------------
 
-# the largest inbox the kernel's tournament holds in registers
-MAX_INBOX = 32
 # hosts a block of the kernel plans (kThreads in csrc/loop_select.cu)
 SELECT_BLOCK = 128
 
@@ -891,9 +1114,9 @@ def loop_select(d_t, d_s, d_q, d_k, d_p, ptr, i_t, i_s, i_q, i_k, i_p,
     B = i_t.shape[1]
     PP = d_p.shape[-1]
     NK = need_by_kind.shape[0]
-    if not (0 < B <= MAX_INBOX) or K >= Kc or G < 1:
-        raise ValueError(f"loop_select: want 0 < B <= {MAX_INBOX}, K < Kc "
-                         f"and G >= 1, got B={B} K={K} Kc={Kc} G={G}")
+    if B < 1 or K >= Kc or G < 1:
+        raise ValueError(f"loop_select: want B >= 1, K < Kc and G >= 1, "
+                         f"got B={B} K={K} Kc={Kc} G={G}")
     dev = d_t.device
     ins = (
         _check(d_t, torch.int64, (H, Kc), "d_t"),
@@ -920,9 +1143,9 @@ def loop_select(d_t, d_s, d_q, d_k, d_p, ptr, i_t, i_s, i_q, i_k, i_p,
         stalled=e(torch.bool, H), ptr=e(torch.int32, H),
         inbox_time=e(torch.int64, H, B),
     )
-    # the block totals, the plan words and the needs
+    # the block totals, the plan words, the needs and the inbox slots
     blocks = -(-H // SELECT_BLOCK)
-    scratch = torch.empty(16 * blocks + 8 * H, dtype=torch.uint8,
+    scratch = torch.empty(16 * blocks + 12 * H, dtype=torch.uint8,
                           device=dev)
     _launch(LOOP_SELECT, *ins, *(t.data_ptr() for t in out),
             scratch.data_ptr(), scratch.numel(), H, Kc, B, PP, NK, K, G,
@@ -2265,9 +2488,6 @@ class TxOut(NamedTuple):
     loopback: torch.Tensor  # bool: admitted to the host itself
 
 
-# the hosts nic_tx takes on the card: its sums count their blocks of 128
-# hosts in 12 bits, and its C entry refuses more (csrc/nic_tx.cu)
-NIC_TX_MAX_HOSTS = 4095 * 128
 # link.send's counters (``SimState.counters`` fields), which nic_tx
 # advances by its packets
 TX_COUNTERS = ("packets_sent", "packets_dropped_loss",
@@ -2332,8 +2552,7 @@ def nic_tx(mask, now, dst, queued, gid, tx_rem, tx_tick, tx_refill, tx_cap,
     refilled tx bucket holds an MTU (or in bootstrap), charge it, count
     it, and roll the remote ones over their path as ``link_send`` does,
     advancing ``counters`` (the four 0-d ``TX_COUNTERS``). ``now`` and
-    ``dst`` are [H] or one value for every host. On the card it takes at
-    most ``NIC_TX_MAX_HOSTS`` hosts and raises on more."""
+    ``dst`` are [H] or one value for every host."""
     if not mask.is_cuda:
         return nic_tx_plain(mask, now, dst, queued, gid, tx_rem, tx_tick,
                             tx_refill, tx_cap, tx_packets, tx_bytes, payload,
@@ -2470,6 +2689,8 @@ def nic_gate(rx_rem, rx_tick, rx_refill, rx_cap, tx_rem, tx_tick, tx_refill,
 class WindowOps(NamedTuple):
     """The window-step functions the engine and the network stack call."""
 
+    window_sort: object
+    pool_merge: object
     extract_slots: object
     phold_forward: object
     audit_commit: object
@@ -2491,13 +2712,15 @@ class WindowOps(NamedTuple):
 
 
 # the wrappers: the kernels on the card, the plain versions on the CPU
-KERNEL_OPS = WindowOps(extract_slots, phold_forward, audit_commit,
+KERNEL_OPS = WindowOps(window_sort, pool_merge, extract_slots,
+                       phold_forward, audit_commit,
                        loop_select, loop_route, codel_dequeue, ring_append,
                        tcp_demux, tcp_ack, tcp_reorder, tcp_out, spec_check,
                        nic_refill, send_dequeue, link_send, nic_tx, nic_rx,
                        nic_gate)
 # the plain versions on any device (the on-card comparison run)
-PLAIN_OPS = WindowOps(extract_slots_plain, phold_forward_plain,
+PLAIN_OPS = WindowOps(window_sort_plain, pool_merge_plain,
+                      extract_slots_plain, phold_forward_plain,
                       audit_commit_plain, loop_select_plain, loop_route_plain,
                       codel_dequeue_plain, ring_append_plain,
                       tcp_demux_plain, tcp_ack_plain, tcp_reorder_plain,

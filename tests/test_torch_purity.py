@@ -102,3 +102,14 @@ def test_wrappers_take_no_other_device():
     out = kernels.extract_slots(*cols, 2, 2)
     assert out.dense.time.device.type == "cpu"
     assert kernels.EXTRACT_SLOTS.launches == 0
+    # the merge: one column of one block elsewhere, the cursor included
+    block = kernels.MergeBlock(pool.time, pool.dst, pool.src, pool.seq,
+                               pool.kind, pool.payload,
+                               torch.zeros(2, dtype=torch.int32))
+    for f in block._fields:
+        other = block._replace(**{f: getattr(block, f).to("meta")})
+        with pytest.raises(ValueError):
+            kernels.pool_merge([block, other], 4)
+    merged = kernels.pool_merge([block, block], 4)
+    assert merged.time.device.type == "cpu"
+    assert kernels.POOL_MERGE.launches == 0
