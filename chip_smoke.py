@@ -14,20 +14,24 @@ over TCP to 1,280 servers, stop 4 s, seed 7) on the loop path through the
 TCP stack; BASELINE config 4's staged shape
 (``bench.py:stage_udp_flood_50k(sync="optimistic")``: 50,176 hosts
 flooding 6,272 servers, stop 3 s, seed 7) under the optimistic driver;
-and two test shapes for code paths that config 4 does not take: the
+two test shapes for code paths that config 4 does not take: the
 PHOLD bench shape over a two-vertex graph whose speculative windows roll
 back ("the mixed run"), and config 3 at 100 Mbit, whose senders queue at
-their NICs. Phases, each printing its numbers beside the card's name and
-power limit:
+their NICs; and four paths of PHOLD's variants and the CPU model: the
+bench shape with its hot-spot variant (``PHOLD_HOT``), its local-span
+variant (``PHOLD_LOCAL``) and a quarter of its hosts at 10 ms of CPU an
+event (``PHOLD_CPU``), and config 2 with its servers at 5 ms an event
+(``CONFIG2_CPU``). Phases, each printing its numbers beside the card's
+name and power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the twenty CUDA kernels from ``shadow_tpu_torch/csrc`` with
+2. build the twenty-one CUDA kernels from ``shadow_tpu_torch/csrc`` with
    nvcc (one process per source, all at once) and print ptxas's register
    and shared-memory report, and for ``loop_select``, ``loop_route``,
    ``ring_append``, ``tcp_ack``, ``tcp_reorder``, ``tcp_out``, ``nic_tx``,
    ``nic_rx``, ``nic_gate``, ``extract_slots``, ``phold_forward``,
-   ``window_sort`` and ``pool_merge`` each entry function's registers,
-   shared memory and spill bytes;
+   ``window_sort``, ``pool_merge`` and ``cpu_serialize`` each entry
+   function's registers, shared memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
@@ -127,14 +131,37 @@ power limit:
     NIC's and the router's ring in place, and of config 3's shape at 32
     hosts after ``tcp_ack`` and ``tcp_out`` ran on masked hosts, that
     leave every tensor of their base state as it was (same object,
-    version and values).
+    version and values);
+15. every kernel of each of the four new paths (``NEW_PATHS``: K1 with
+    the hot and local picks, K2 with exec times apart from the times,
+    K21 ``cpu_serialize`` in its matrix and its loop form) on its
+    busiest call over a few windows from ``NEW_MID``, equal bit for bit
+    to its plain version and timed beside its bound; and K1's
+    ``pick_dst`` (``kernels.phold_pick``) on every draw the uniform
+    takes and the float32 values around each split, in its three modes,
+    against ``pick_dst``; and the next ten windows of ``phold_cpu``,
+    ``config2_cpu``, the bench shape and config 2 alone and under the
+    profiler;
+16. each new path from t = 0 to the stop in one ``run()`` through the
+    kernels, launch counts set to 0 just before it and read just after:
+    windows, every counter and the chain equal to the JAX package's
+    (``REF_NEW``), every kernel of the path launched (K1, K2, K19, K20,
+    K3, K12 and on ``phold_cpu`` K21 once a window; K21 on
+    ``config2_cpu`` once a micro-step that commits, as K2) and no other;
+17. each new path to ``NEW_MID`` through the kernels and the plain
+    versions on the card: windows, counters, chain and every state
+    array (``cpu_avail`` among them) equal; and ``phold_cpu`` to the
+    same cut through ``run_stepwise``: the same windows, counters, chain
+    and state as ``run``'s. K21 must launch on none of the six earlier
+    paths.
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
 The line has one entry for each kernel on each main path (``path``
-"phold", "config2", "config3", "config4", "mixed" or
-"config3_100mbit"): its ``launches`` in that path's run (phase 4, 7, 10,
-13, 14 or 12), and its times and bound on that path's inputs (phase 3,
-6, 9 or 12); ``ms`` is the device time, ``issue_ms`` the issue time,
+"phold", "config2", "config3", "config4", "mixed", "config3_100mbit",
+"phold_hot", "phold_local", "phold_cpu" or "config2_cpu"): its
+``launches`` in that path's run (phase 4, 7, 10, 13, 14, 12 or 16), and
+its times and bound on that path's inputs (phase 3, 6, 9, 12 or 15);
+``ms`` is the device time, ``issue_ms`` the issue time,
 ``library_ms`` the ``torch.sort`` yardstick of the two sorts (null for
 the other kernels).
 Any failure raises, exits non-zero and prints no ok line;
@@ -147,7 +174,8 @@ PyTorch/CUDA port", gives the commands):
 ``sim.run()``, configs 2 and 3 (``CONFIG2`` and ``CONFIG3`` below)
 through ``shadow_tpu.sim.build_simulation`` then ``sim.run()``, and
 config 4 and the mixed run (``CONFIG4``, ``MIXED``) through
-``build_simulation`` then ``sim.run_optimistic()``.
+``build_simulation`` then ``sim.run_optimistic()``, and the four new
+paths through ``build_simulation`` then ``sim.run()``.
 """
 
 from __future__ import annotations
@@ -165,7 +193,8 @@ import numpy as np
 from shadow_tpu_torch import interop, kernels
 from shadow_tpu_torch.core import engine
 from shadow_tpu_torch.core.simtime import NEVER
-from shadow_tpu_torch.flagship import build_phold_flagship
+from shadow_tpu_torch.flagship import SELF_LOOP_50MS_GML, build_phold_flagship
+from shadow_tpu_torch.net.apps import PholdApp
 from shadow_tpu_torch.sim import build_simulation
 
 BENCH = dict(num_hosts=16384, msgload=8, stop_s=10, runtime_s=10, seed=42)
@@ -175,6 +204,84 @@ REF_PACKETS_SENT = 23_592_960
 REF_POOL_OVERFLOW_DROPPED = 0
 REF_AUDIT_CHAIN = 0x2A4DA5031C0CA606
 REF_WINDOWS = 181
+
+
+def phold_config(loaded: int = 0, cpu_ns: int = 0, **app) -> dict:
+    """The bench shape as ``build_phold_flagship`` builds it (16,384 hosts,
+    msgload 8, stop and runtime 10 s, seed 42, its pool and K), with PHOLD
+    options ``app`` (``hot_frac``/``hot_share``, ``local_span``) and the
+    last ``loaded`` hosts at ``cpu_ns`` of CPU time an event."""
+    H, m = BENCH["num_hosts"], BENCH["msgload"]
+    opts = {"msgload": m, "runtime": BENCH["runtime_s"], **app}
+    hosts = {"peer": {"quantity": H - loaded, "app_model": "phold",
+                      "app_options": opts}}
+    if loaded:
+        hosts["loaded"] = {"quantity": loaded, "app_model": "phold",
+                           "app_options": dict(opts),
+                           "cpu_ns_per_event": cpu_ns}
+    return {
+        "general": {"stop_time": BENCH["stop_s"], "seed": BENCH["seed"]},
+        "network": {"graph": {"type": "gml",
+                              "inline": SELF_LOOP_50MS_GML}},
+        "experimental": {"event_capacity": max(3 * H * m // 2, 4096),
+                         "events_per_host_per_window": m + 16,
+                         "outbox_slots": m + 16, "inbox_slots": 4},
+        "hosts": hosts,
+    }
+
+
+def pick_sweep(num_hosts: int, hot_n: int = 0, hot_share: float = 0.0,
+               local_span: int = 0, seed: int = 53):
+    """(u, my_id) float32 and int32 numpy arrays for ``pick_dst``: every
+    draw the float32 uniform takes (k·2^-23), then the float32 values
+    within two steps of each split of the mode (the hot share, and each
+    bucket edge j / c_hot and hs + j / c_cold; j / 2·span; j / (H - 1)),
+    each with a seeded sender."""
+    edges = []
+    if local_span:
+        edges = [j / (2 * local_span) for j in range(2 * local_span + 1)]
+    elif hot_n:
+        hs, c_hot, c_cold = kernels.hot_split(num_hosts, hot_n, hot_share)
+        edges = ([hs] + [j / c_hot for j in range(hot_n + 1)]
+                 + [hs + j / c_cold for j in range(num_hosts - hot_n + 1)])
+    elif num_hosts > 1:
+        edges = [j / (num_hosts - 1) for j in range(num_hosts)]
+    near = np.float32(np.array(edges, dtype=np.float64))
+    for _ in range(2):
+        near = np.concatenate([near] + [
+            np.nextafter(near, np.float32(d * np.inf)) for d in (-1, 1)])
+    near = near[(near >= 0) & (near < 1)]
+    u = np.concatenate([np.arange(1 << 23, dtype=np.float32)
+                        * np.float32(2.0 ** -23), np.unique(near)])
+    me = np.random.default_rng(seed).integers(0, num_hosts, u.shape[0])
+    return u, me.astype(np.int32)
+
+
+# PHOLD's hot-spot variant: half of all forwards target the first eighth
+# of the hosts, whose ≈32 events a window overflow K = 24, so the window
+# steps again for the stragglers
+PHOLD_HOT = phold_config(hot_frac=0.125, hot_share=0.5)
+# the local-span variant at bench.py's async-sync value
+PHOLD_LOCAL = phold_config(local_span=2)
+# the CPU model: the last quarter of the hosts pays 10 ms an event
+# (tests/test_engine_phold.py's loaded cost), 100 events/s against ≈160
+# offered, so their CPU clocks run away
+PHOLD_CPU = phold_config(loaded=4096, cpu_ns=10_000_000)
+
+COUNTER_NAMES = (
+    "bulk_contract_violations", "bytes_delivered", "bytes_sent",
+    "cpu_delay_applied", "events_committed", "events_emitted",
+    "exchange_deferred", "exchange_sent", "inbox_overflow_deferred",
+    "micro_steps", "outbox_overflow_dropped", "outbox_stall_deferred",
+    "packets_delivered", "packets_dropped_loss",
+    "packets_dropped_unreachable", "packets_sent", "pool_overflow_dropped")
+
+
+def all_counters(**nonzero) -> dict:
+    """Every counter of ``Simulation.counters()``: the ones given, 0 the
+    rest."""
+    return {k: nonzero.pop(k, 0) for k in COUNTER_NAMES} | nonzero
+
 
 # BASELINE config 2, as bench.py:stage_udp_flood builds it
 CONFIG2 = {
@@ -210,6 +317,49 @@ REF2_COUNTERS = {
     "outbox_overflow_dropped": 0,
     "inbox_overflow_deferred": 0,
     "bulk_contract_violations": 0,
+}
+# config 2 with the CPU model on every host: the 1,280 servers at 5 ms an
+# event, each taking ≈350 datagrams/s from 7 clients at 20 ms intervals
+# against 200 events/s of CPU, so their events serialize; the 8,960
+# clients at 25 ms an event, past their 20 ms interval, so each send runs
+# late and the next timer with it (a send every 25 ms): the CPU model moves
+# the emitted history, its chain and counters
+CONFIG2_CPU = {**CONFIG2, "hosts": {
+    "server": {**CONFIG2["hosts"]["server"], "cpu_ns_per_event": 5_000_000},
+    "client": {**CONFIG2["hosts"]["client"],
+               "cpu_ns_per_event": 25_000_000}}}
+
+# The JAX package's values for the variants and the CPU model at full
+# width and depth: build_simulation(cfg) then sim.run() on a CPU (config 2
+# with windows_per_dispatch=32), windows from obs_snapshot()["win"].
+REF_NEW = {
+    "phold_hot": {
+        "windows": 538, "audit_chain": 0xF59BDFCC81EC8F4A,
+        "counters": all_counters(
+            bytes_sent=1_509_949_440, events_committed=23_592_960,
+            events_emitted=23_592_960, micro_steps=538,
+            packets_sent=23_592_960)},
+    "phold_local": {
+        "windows": 180, "audit_chain": 0x44963D2162ACAE3C,
+        "counters": all_counters(
+            bytes_sent=1_509_949_440, events_committed=23_592_960,
+            events_emitted=23_592_960, micro_steps=180,
+            packets_sent=23_592_960)},
+    "phold_cpu": {
+        "windows": 180, "audit_chain": 0x5A4BF1F83F1CB644,
+        "counters": all_counters(
+            bytes_sent=928_388_736, cpu_delay_applied=465_034_480_000_000,
+            events_committed=14_506_074, events_emitted=14_506_074,
+            micro_steps=180, packets_sent=14_506_074)},
+    "config2_cpu": {
+        "windows": 241, "audit_chain": 0x44AA225B06E15BCE,
+        "counters": all_counters(
+            bytes_delivered=1_099_926_528,
+            bytes_sent=1_131_110_400, cpu_delay_applied=658_424_230_000_000,
+            events_committed=2_158_307, events_emitted=2_149_347,
+            micro_steps=723, outbox_stall_deferred=367_676,
+            packets_delivered=1_074_147, packets_dropped_loss=1_053,
+            packets_sent=1_075_200)},
 }
 
 
@@ -467,6 +617,20 @@ CONFIG3_PATH = LOOP_PATH + TCP_PATH + ("nic_refill",)
 # config 4 is config 2's flood at 50,176 hosts under the optimistic driver
 CONFIG4_PATH = CONFIG2_PATH
 MIXED_PATH = PHOLD_PATH
+# the CPU model adds cpu_serialize (K21) to a path
+PHOLD_CPU_PATH = PHOLD_PATH + ("cpu_serialize",)
+CONFIG2_CPU_PATH = CONFIG2_PATH + ("cpu_serialize",)
+# each new path: its config and its kernels; and (NEW_MID) the simulated
+# time its kernels are captured from (phase 15) and its cut runs stop at
+# (phase 17)
+NEW_PATHS = {
+    "phold_hot": (PHOLD_HOT, PHOLD_PATH),
+    "phold_local": (PHOLD_LOCAL, PHOLD_PATH),
+    "phold_cpu": (PHOLD_CPU, PHOLD_CPU_PATH),
+    "config2_cpu": (CONFIG2_CPU, CONFIG2_CPU_PATH),
+}
+NEW_MID = {"phold_hot": 5_000_000_000, "phold_local": 5_000_000_000,
+           "phold_cpu": 5_000_000_000, "config2_cpu": 2_000_000_000}
 # no NIC send ring queues at 1 Gbit (configs 2 to 4), so only the
 # NIC-bound transfer takes the send pump: its dequeue and its link_send
 NIC_PATH = CONFIG3_PATH + ("send_dequeue", "link_send")
@@ -506,7 +670,11 @@ REPLACES = {
     "nic_tx": "shadow_tpu/net/stack.py:142",
     "nic_rx": "shadow_tpu/net/stack.py:293",
     "nic_gate": "shadow_tpu/net/stack.py:483",
+    # the matrix form; on the loop path, the loop body's chain
+    # (REPLACES_LOOP)
+    "cpu_serialize": "shadow_tpu/core/engine.py:1224",
 }
+REPLACES_LOOP = {"cpu_serialize": "shadow_tpu/core/engine.py:904"}
 
 
 # the entry functions whose name is not their kernel's with "_kernel"
@@ -763,11 +931,17 @@ def kernel_bound(name: str, args, kw, out):
         return bound(nbytes(*args) + nbytes(*out),
                      UNIFORM_OPS * (H * K + n_send))
     if name == "audit_commit":
-        d_t, gid = args[0], args[3]
+        d_t, e_t, gid = args[0], args[1], args[4]
         n_valid = int(out.n_valid.sum())
-        # every cell's time; the src and kind of the committed ones
-        return bound(nbytes(d_t, gid, *args[4:]) + 8 * n_valid
+        # every cell's time; the src and kind of the committed ones, and
+        # their exec times where these are another tensor (the CPU model)
+        ex = 0 if e_t is d_t else 8 * n_valid
+        return bound(nbytes(d_t, gid, *args[5:]) + 8 * n_valid + ex
                      + nbytes(*out), 16 * n_valid)
+    if name == "cpu_serialize":
+        # every time read and every exec time written, a host's cost and
+        # clock read and its clock written, the sum
+        return bound(nbytes(*args[:3]) + nbytes(*out), 0)
     if name == "loop_select":
         d_p, i_t, gate = args[4], args[6], args[12]
         H, B, PP = d_p.shape[0], i_t.shape[1], d_p.shape[-1]
@@ -973,8 +1147,9 @@ def phase_kernels(card: str) -> dict:
     )
 
     ob = st.obs
-    cargs = (dense.time, dense.src, dense.kind, h.gid, ob.host_digest,
-             ob.host_events, ob.host_last_t, h.done_t)
+    # the CPU model is off: the exec times are the times, one tensor
+    cargs = (dense.time, dense.time, dense.src, dense.kind, h.gid,
+             ob.host_digest, ob.host_events, ob.host_last_t, h.done_t)
     got = kernels.audit_commit(*cargs)
     want = kernels.audit_commit_plain(*cargs)
     err = max_abs_err(got, want)
@@ -1122,6 +1297,10 @@ def activity(name: str, args, out) -> int:
         return int((out.dense.time != NEVER).sum())  # events extracted
     if name == "audit_commit":
         return int(out.n_valid.sum())  # events committed
+    if name == "phold_forward":
+        return int(out.stats[:, 1].sum())  # messages sent
+    if name == "cpu_serialize":
+        return int((args[0] != NEVER).sum())  # events serialized
     if name == "loop_select":
         return int(out.valid.sum())
     if name == "loop_route":
@@ -1614,7 +1793,10 @@ def phase_loop_kernels(card: str) -> dict:
     return results
 
 
-def flood_run(card: str, ops, label: str, cfg: dict = CONFIG2):
+def flood_run(card: str, ops, label: str, cfg: dict = CONFIG2,
+              until: int | None = None, stepwise: bool = False):
+    """``cfg`` built and run through ``ops`` with ``run`` (``run_stepwise``
+    with ``stepwise``) to ``until``, its launches counted from 0."""
     t0 = time.perf_counter()
     sim = build_simulation(cfg)
     sim.ops = ops
@@ -1622,7 +1804,7 @@ def flood_run(card: str, ops, label: str, cfg: dict = CONFIG2):
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     kernels.reset_launches()
-    windows = sim.run()
+    windows = (sim.run_stepwise if stepwise else sim.run)(until)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -1634,6 +1816,8 @@ def flood_run(card: str, ops, label: str, cfg: dict = CONFIG2):
           f"ms_per_window={wall / windows * 1e3:.4f} "
           f"events_committed={c['events_committed']} "
           f"events_per_s={c['events_committed'] / wall:.1f} "
+          f"cpu_delay_applied={c['cpu_delay_applied']} "
+          f"cpu_avail_max={int(sim.state.host.cpu_avail.max())} "
           f"audit_chain={chain:#018x} launches={launches} "
           f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}",
           flush=True)
@@ -2007,7 +2191,7 @@ def compiler_view(reports: dict) -> dict:
     for name in ("extract_slots", "phold_forward", "loop_select",
                  "loop_route", "ring_append", "tcp_ack",
                  "tcp_reorder", "tcp_out", "nic_tx", "nic_rx", "nic_gate",
-                 "window_sort", "pool_merge"):
+                 "window_sort", "pool_merge", "cpu_serialize"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -2382,6 +2566,151 @@ def optimistic_phases(card: str):
     return opt_results, launches4, launchesm, launches_nic
 
 
+# ---------------------------------------------------------------------------
+# PHOLD's variants and the CPU model
+# ---------------------------------------------------------------------------
+
+def step_windows(sim, n: int) -> None:
+    """Step ``n`` windows as ``Simulation.run`` does."""
+    for _ in range(n):
+        f = sim._frontier(sim.stop_time)
+        if f.mn >= sim.stop_time:
+            return
+        sim.window_step(f.mn, min(f.mn + sim.runahead, sim.stop_time), f)
+
+
+def phase_new_kernels(card: str) -> dict:
+    """Phase 15: every kernel of each new path on its busiest call over a
+    few windows from NEW_MID (ten on the matrix paths, two on config 2's
+    loop path, which alternate sends and arrivals), against its plain
+    version; the next ten windows of the two CPU-model paths and of their
+    model-off twins (the bench shape, config 2) run alone and under the
+    profiler; and phold_forward's pick on swept draws (``pick_sweep``)."""
+    results = {}
+    for name, (cfg, path) in NEW_PATHS.items():
+        sim = build_simulation(cfg)
+        sim.run(until=NEW_MID[name])
+        best: dict = {}
+        sim.ops = capture_ops(best, path)
+        step_windows(sim, 2 if name == "config2_cpu" else 10)
+        print(f"[{card}] phase 15 {name} inputs: the busiest call of each "
+              f"kernel over the windows from {NEW_MID[name]}, "
+              f"H={sim.num_hosts} K={sim.K}: "
+              + json.dumps({k: v[0] for k, v in best.items()}), flush=True)
+        missing = [k for k in path if k not in best]
+        if missing:
+            fail(f"phase 15 {name}: the windows did not call {missing}")
+        results[name] = compare_calls(card, f"phase 15 {name}", best)
+        if name in ("phold_cpu", "config2_cpu"):
+            # the CPU model's windows beside their model-off twins' below
+            sim.ops = kernels.KERNEL_OPS
+            profile_windows(card, sim, f"phase 15 the {name} windows",
+                            10 * sim.runahead)
+        dev = sim.device
+        del sim, best
+    for label, cfg, skip in (("the bench shape's", phold_config(), 10),
+                             ("config 2's", CONFIG2, 2)):
+        sim = build_simulation(cfg)
+        sim.run(until=NEW_MID["phold_cpu" if skip == 10 else "config2_cpu"])
+        step_windows(sim, skip)
+        profile_windows(card, sim, f"phase 15 {label} windows",
+                        10 * sim.runahead)
+        del sim
+    H = BENCH["num_hosts"]
+    for label, app in (("uniform", {}), ("hot", PHOLD_HOT),
+                       ("local", PHOLD_LOCAL)):
+        opts = (app["hosts"]["peer"]["app_options"] if app else {})
+        a = PholdApp(H, **{k: v for k, v in opts.items()
+                           if k in ("hot_frac", "hot_share", "local_span")})
+        u, me = (torch.as_tensor(x, device=dev)
+                 for x in pick_sweep(H, **a.pick))
+        got = kernels.phold_pick(u, me, H, **a.pick)
+        want = kernels.pick_dst(u, me, H, **a.pick)
+        err = max_abs_err([got], [want])
+        print(f"[{card}] phase 15 phold_forward's pick_dst ({label}) on "
+              f"{u.numel()} swept draws: max_abs_err={err}, self-sends "
+              f"{int((got == me).sum())}, to hosts below {a.hot_n or 0}: "
+              f"{int((got < a.hot_n).sum())}", flush=True)
+        if err != 0:
+            fail(f"phase 15: phold_forward's {label} pick disagrees with "
+                 f"pick_dst on the card")
+    return results
+
+
+def new_phases(card: str):
+    """Phases 16-17: each new path's whole run through the kernels against
+    the JAX package's values; each to NEW_MID through the kernels and the
+    plain versions, state by state; ``run_stepwise`` against ``run`` on
+    phold_cpu. Returns the whole runs' launches by path."""
+    out = {}
+    for name, (_, path) in NEW_PATHS.items():
+        sim, windows, c, chain, launches = flood_run(
+            card, kernels.KERNEL_OPS, f"phase 16 {name} through the kernels",
+            NEW_PATHS[name][0])
+        ref = REF_NEW[name]
+        for what, got, want in (("windows", windows, ref["windows"]),
+                                ("counters", c, ref["counters"]),
+                                ("audit_chain", chain, ref["audit_chain"])):
+            if got != want:
+                fail(f"phase 16 {name}: {what} = {got}, want {want}")
+        for k in kernels.KERNELS:
+            n = launches[k.name]
+            if (k.name in path) != (n > 0):
+                fail(f"phase 16 {name}: {k.name} launched {n} times")
+        win = sim.obs_snapshot()["win"]
+        loop = name == "config2_cpu"
+        if win["loop_dispatches" if loop else "matrix_dispatches"] != windows:
+            fail(f"phase 16 {name}: not every window took its path: {win}")
+        if loop:
+            # a launch each micro-step that commits, as audit_commit's
+            if launches["cpu_serialize"] != launches["audit_commit"]:
+                fail(f"phase 16 {name}: cpu_serialize and audit_commit "
+                     f"launched {launches['cpu_serialize']} and "
+                     f"{launches['audit_commit']} times")
+        elif any(launches[k] != windows for k in path):
+            fail(f"phase 16 {name}: a kernel of the path did not launch "
+                 f"once a window")
+        out[name] = launches
+        print(f"[{card}] phase 16 {name} equal to the JAX package's "
+              f"windows, counters and chain", flush=True)
+        del sim
+    for name, (cfg, _) in NEW_PATHS.items():
+        until = NEW_MID[name]
+        cut = [flood_run(card, ops, f"phase 17 {name} to {until} ({label})",
+                         cfg, until)
+               for ops, label in ((kernels.KERNEL_OPS, "kernels"),
+                                  (kernels.PLAIN_OPS, "plain versions"))]
+        (ks, kw, kc, kch, _), (ps, pw, pc, pch, pl) = cut
+        if any(pl.values()):
+            fail(f"phase 17 {name}: a kernel launched in the plain run: {pl}")
+        if (pw, pc, pch) != (kw, kc, kch):
+            fail(f"phase 17 {name}: the plain run's windows, counters or "
+                 f"chain differ")
+        diff = same_state(ks.state, ps.state)
+        if diff:
+            fail(f"phase 17 {name}: final state differs from the kernels' "
+                 f"in {diff}")
+        print(f"[{card}] phase 17 {name} plain run equal to the kernels' "
+              f"run to {until}: windows, counters, chain, "
+              f"{len(interop.state_paths(ps.state))} state arrays (cpu_avail "
+              f"among them)", flush=True)
+        if name == "phold_cpu":
+            ss, sw, sc, sch, _ = flood_run(
+                card, kernels.KERNEL_OPS,
+                f"phase 17 {name} to {until} (run_stepwise)", cfg, until,
+                stepwise=True)
+            diff = same_state(ks.state, ss.state)
+            if (sw, sc, sch) != (kw, kc, kch) or diff:
+                fail(f"phase 17: run_stepwise's windows, counters, chain or "
+                     f"state differ from run's ({diff})")
+            print(f"[{card}] phase 17 run_stepwise equal to run on {name} "
+                  f"to {until}: {sw} windows, chain, every state array",
+                  flush=True)
+            del ss
+        del cut, ks, ps
+    return out
+
+
 def same_state(a, b) -> list:
     """The paths where two states' arrays differ (or the path sets)."""
     na, nb = interop.state_to_numpy(a), interop.state_to_numpy(b)
@@ -2552,6 +2881,10 @@ def main() -> None:
     t_opt = time.perf_counter()
     opt_results, launches4, launchesm, launches_nic = optimistic_phases(card)
 
+    t_new = time.perf_counter()
+    new_results = phase_new_kernels(card)
+    new_launches = new_phases(card)
+
     # one entry for each kernel on each main path: its launches in that
     # path's run, and its times and bound on that path's inputs
     paths = (("phold", PHOLD_PATH, launches, results),
@@ -2561,13 +2894,21 @@ def main() -> None:
              ("mixed", MIXED_PATH, launchesm, opt_results["mixed"]),
              ("config3_100mbit", NIC_PATH, launches_nic,
               opt_results["config3_100mbit"]))
+    # the CPU model is off on the six earlier paths: K21 launches nothing
+    for path, _, counts, _ in paths:
+        if counts["cpu_serialize"]:
+            fail(f"cpu_serialize launched {counts['cpu_serialize']} times "
+                 f"on {path}, whose hosts have no CPU cost")
+    paths += tuple((name, NEW_PATHS[name][1], new_launches[name],
+                    new_results[name]) for name in NEW_PATHS)
     line = {"kernels": [
         {
             "name": k.name,
             "path": path,
             "route": "cuda",
             "source": f"shadow_tpu_torch/csrc/{k.name}.cu",
-            "replaces": REPLACES[k.name],
+            "replaces": (REPLACES_LOOP.get(k.name, REPLACES[k.name])
+                         if path == "config2_cpu" else REPLACES[k.name]),
             "launches": counts[k.name],
             "max_abs_err": res[k.name]["err"],
             "ms": res[k.name]["ms"],
@@ -2582,7 +2923,8 @@ def main() -> None:
     ]}
     t_end = time.perf_counter()
     print(f"[{card}] phases 9-11 wall_s={t_opt - t_tcp:.3f}; phases 12-14 "
-          f"wall_s={t_end - t_opt:.3f}; whole script "
+          f"wall_s={t_new - t_opt:.3f}; phases 15-17 "
+          f"wall_s={t_end - t_new:.3f}; whole script "
           f"wall_s={t_end - t_start:.3f}", flush=True)
     print(json.dumps(line))
     print(card)

@@ -22,11 +22,17 @@ One matrix window:
    ``[H, K]`` matrix, every other row, in sorted order, to the tail (the
    JAX package's rank scan and second sort by dense slot, in closed
    form: every host run holds at least its K fillers).
-2. FORWARD: the model's matrix handler (PHOLD: the kernel
-   ``phold_forward``) emits one numbered row per dense cell.
-3. COMMIT: the kernel ``audit_commit`` folds the window into the audit
-   chain and the per-host counts and frontiers.
-4. MERGE (kernel ``pool_merge``): a stable sort by time of tail ∪
+2. CPU MODEL (kernel ``cpu_serialize``, only where a host has a CPU
+   cost): each host's events execute one after another on its virtual
+   CPU, at ``exec_k = max(t_k, exec_{k-1} + cost)`` from its
+   ``cpu_avail``.
+3. FORWARD: the model's matrix handler (PHOLD: the kernel
+   ``phold_forward``) emits one numbered row per dense cell, at its exec
+   time.
+4. COMMIT: the kernel ``audit_commit`` folds the window into the audit
+   chain (keyed on the events' own times) and the per-host counts and
+   frontiers (the exec times).
+5. MERGE (kernel ``pool_merge``): a stable sort by time of tail ∪
    emissions, truncated to the pool capacity; rows past it are counted as
    ``pool_overflow_dropped``.
 
@@ -38,10 +44,14 @@ reached. A micro-step is:
 1. SELECT (kernel ``loop_select``): per host, the dense head at its cursor
    against its inbox minimum; the bulk batch; the outbox-room and
    pool-headroom gates.
-2. COMMIT (kernel ``audit_commit`` on the taken events).
-3. HANDLE: the handlers in ascending kind, the bulk kind's once per taken
-   column; each emits records through an ``Emitter``.
-4. ROUTE (kernel ``loop_route``): number the records in emit order; self
+2. CPU MODEL (kernel ``cpu_serialize`` on the taken events, only where a
+   host has a CPU cost): the head and the bulk columns chain on each
+   host's ``cpu_avail``; selection stays keyed on the events' own times.
+3. COMMIT (kernel ``audit_commit`` on the taken events).
+4. HANDLE: the handlers in ascending kind, the bulk kind's once per taken
+   column, each event at its exec time; each emits records through an
+   ``Emitter``.
+5. ROUTE (kernel ``loop_route``): number the records in emit order; self
    emissions inside the window go to the inbox, the rest to the outbox.
    The boxes belong to the window alone (never to ``SimState``, so no
    snapshot holds them), and on the card the kernel updates them in
@@ -63,18 +73,19 @@ it NEVER by construction.
 The plain versions of the two sorts are ``torch.sort(stable=True)``: a
 stable sort by k2 followed by a stable sort by k1 is
 ``lax.sort(num_keys=2, is_stable=True)``; on the card each sort is one
-hand-written radix sort. The conservative driver (``run``) is a host
-loop with one device-to-host read per window, and it reproduces
-``make_run_to``'s window bounds exactly: ``ws = min(pool.time)``,
-``we = min(ws + runahead, stop)``. The optimistic
+hand-written radix sort. The conservative driver (``run``, and
+``run_stepwise``, the same loop) is a host loop with one device-to-host
+read per window, and it reproduces ``make_run_to``'s window bounds
+exactly: ``ws = min(pool.time)``, ``we = min(ws + runahead, stop)``. The
+optimistic
 driver (``run_optimistic``, the JAX package's ``make_attempt`` and
 ``Simulation.run_optimistic``) speculates windows of up to ``factor``
 runaheads: an attempt steps a snapshot of the committed state until the
 pool holds no event below the window end or a step reports a violation,
 which rolls the window back and retries it shorter.
 
-Not ported here (``ROADMAP.md``): the CPU model, islands, pool gears and
-the spill tier.
+Not ported here (``ROADMAP.md``): islands, pool gears and the spill
+tier.
 """
 
 from __future__ import annotations
@@ -244,8 +255,10 @@ class Simulation:
     JAX package's arguments: ``handlers`` maps event kind to a loop-path
     handler, ``bulk_kinds`` maps the one bulk kind to its batch width G,
     ``matrix_handler`` (for the bulk kind) enables the matrix path,
-    ``bulk_gate`` / ``bulk_self_excluded`` limit the bulk batch, and K, B,
-    O size the dense window, inbox and outbox. ``device=None`` means the
+    ``bulk_gate`` / ``bulk_self_excluded`` limit the bulk batch, K, B, O
+    size the dense window, inbox and outbox, and ``cpu_ns_per_event`` (a
+    cost per host, ns) turns the CPU model on where any cost is above 0;
+    with none, it launches nothing. ``device=None`` means the
     card; pass ``device="cpu"`` to run the plain versions on the CPU.
     ``ops`` selects the window functions: the kernel wrappers by default,
     ``kernels.PLAIN_OPS`` for the plain versions on any device.
@@ -272,6 +285,7 @@ class Simulation:
         subs: dict | None = None,
         initial_events: list | None = None,
         payload_words: int = PAYLOAD_WORDS,
+        cpu_ns_per_event: np.ndarray | None = None,
         device=None,
         ops: kernels.WindowOps = kernels.KERNEL_OPS,
         _force_path: str | None = None,
@@ -331,7 +345,11 @@ class Simulation:
             ).to(dev)
             for s, q in seq_ctr.items():
                 seq_init[s] = q
-        host = make_host_state(num_hosts, host_vertex, device=dev)
+        self.with_cpu = cpu_ns_per_event is not None and bool(
+            np.any(np.asarray(cpu_ns_per_event) > 0))
+        host = make_host_state(
+            num_hosts, host_vertex,
+            cpu_cost=cpu_ns_per_event, device=dev)
         host.seq_next = torch.as_tensor(seq_init, device=dev)
         # a snapshot: the caller's sub-states (a network stack's initial
         # tensors) stay the caller's, and the live state owns the fields
@@ -390,9 +408,12 @@ class Simulation:
         state.now = int(win_start)
         dense, tail = dense_extract(state.pool, win_start, win_end,
                                     self.num_hosts, self.K, ops)
-        fw = self.matrix_handler(state, dense, self.params, win_end, ops)
+        state, exec_t = self._serialize(state, dense.time, matrix=True)
+        self.state = state
+        fw = self.matrix_handler(state, dense._replace(time=exec_t),
+                                 self.params, win_end, ops)
         ob = state.obs
-        cm = ops.audit_commit(dense.time, dense.src, dense.kind,
+        cm = ops.audit_commit(dense.time, exec_t, dense.src, dense.kind,
                               state.host.gid, ob.host_digest,
                               ob.host_events, ob.host_last_t,
                               state.host.done_t)
@@ -412,6 +433,19 @@ class Simulation:
         c.micro_steps = c.micro_steps + 1
         state.pool, dropped = merge(tail, fw, state.pool.capacity, ops)
         c.pool_overflow_dropped = c.pool_overflow_dropped + dropped
+
+    def _serialize(self, state: SimState, t: torch.Tensor, matrix: bool):
+        """The CPU model over the events ``t`` ([H, W], NEVER = none):
+        returns (the state with ``cpu_avail`` and ``cpu_delay_applied``
+        moved on, their exec times). Without a CPU cost, (``state``,
+        ``t``), and no launch."""
+        if not self.with_cpu:
+            return state, t
+        h = state.host
+        cs = self.ops.cpu_serialize(t, h.cpu_cost, h.cpu_avail, matrix)
+        state = state.with_host(cpu_avail=cs.cpu_avail).add_counters(
+            cpu_delay_applied=cs.delay)
+        return state, cs.exec_t
 
     # -- the micro-step loop path --
 
@@ -532,16 +566,18 @@ class Simulation:
                 break
             ptr = sel.ptr
             boxes = boxes._replace(i_t=sel.inbox_time)
+            state, exec_t = self._serialize(state, sel.take_t, matrix=False)
             ob = state.obs
             cm = ops.audit_commit(
-                sel.take_t, sel.take_s, sel.take_k, gid, ob.host_digest,
-                ob.host_events, ob.host_last_t, state.host.done_t)
+                sel.take_t, exec_t, sel.take_s, sel.take_k, gid,
+                ob.host_digest, ob.host_events, ob.host_last_t,
+                state.host.done_t)
             state = state.with_host(done_t=cm.done_t).replace(
                 obs=state_mod.replace(
                     ob, host_events=cm.host_events,
                     host_last_t=cm.host_last_t, host_digest=cm.host_digest))
             emitter = Emitter(ops)
-            head = self._view(sel, 0, P, sel.valid)
+            head = self._view(sel, exec_t, 0, P, sel.valid)
             for k, on in zip(kinds, kind_on):
                 if not on:
                     continue
@@ -550,7 +586,7 @@ class Simulation:
                 if k == bk:
                     for g in range(1, G_run):
                         if col_on[g - 1]:
-                            ev = self._view(sel, g, P,
+                            ev = self._view(sel, exec_t, g, P,
                                             sel.take_t[:, g] != NEVER)
                             state = self.handlers[k](state, ev, emitter,
                                                      params)
@@ -602,11 +638,11 @@ class Simulation:
         return committed
 
     @staticmethod
-    def _view(sel, g: int, P: int, mask) -> EventView:
-        """The handlers' view of taken column g, each field contiguous as
-        the kernels take it."""
+    def _view(sel, exec_t, g: int, P: int, mask) -> EventView:
+        """The handlers' view of taken column g at its exec times, each
+        field contiguous as the kernels take it."""
         return EventView(
-            mask=mask, time=sel.take_t[:, g].contiguous(),
+            mask=mask, time=exec_t[:, g].contiguous(),
             src=sel.take_s[:, g].contiguous(),
             seq=sel.take_q[:, g].contiguous(),
             kind=sel.take_k[:, g].contiguous(),
@@ -626,6 +662,13 @@ class Simulation:
         the many small operations a micro-step launches."""
         with torch.inference_mode():
             return self._run(until)
+
+    def run_stepwise(self, until: int | None = None) -> int:
+        """The JAX package's host-driven loop (one dispatch and one read a
+        window): here the same loop as ``run``, which is host-driven
+        already. Returns the number of windows run, as the JAX package's
+        ``run_stepwise`` does."""
+        return self.run(until)
 
     def _run(self, until: int | None) -> int:
         stop = self.stop_time if until is None else min(until,
@@ -745,6 +788,18 @@ class Simulation:
                         f"commit")
                 if viol >= NEVER or we <= ws + cons:
                     break
+                if viol >= we:
+                    # only the CPU model gets here: a destination's exec
+                    # clock (done_t) ran past the window, so an emission
+                    # at or after its end counts as a violation, and the
+                    # retried window would be this one again; the JAX
+                    # package retries it forever (ROADMAP.md C4)
+                    raise RuntimeError(
+                        f"speculation violation at t={viol}, at or past the "
+                        f"end of the window [{ws}, {we}): the CPU model ran "
+                        f"a destination's clock past the window, so no "
+                        f"shorter window clears it (ROADMAP.md C4); run "
+                        f"this configuration with run()")
                 rollbacks += 1
                 we = max(viol, ws + cons)
             # each rollback shrank the window once

@@ -215,7 +215,10 @@ def _snap(v):
 
 
 def make_host_state(num_hosts: int, host_vertex: np.ndarray,
+                    cpu_cost: np.ndarray | None = None,
                     device=None) -> HostState:
+    """``cpu_cost``: the CPU model's cost of an event per host, ns (None:
+    zeros, the model off)."""
     H = num_hosts
     return HostState(
         seq_next=torch.zeros(H, dtype=torch.int32, device=device),
@@ -224,6 +227,8 @@ def make_host_state(num_hosts: int, host_vertex: np.ndarray,
                                device=device),
         gid=torch.arange(H, dtype=torch.int32, device=device),
         done_t=torch.full((H,), -1, dtype=torch.int64, device=device),
-        cpu_cost=torch.zeros(H, dtype=torch.int64, device=device),
+        cpu_cost=(torch.as_tensor(np.asarray(cpu_cost), dtype=torch.int64,
+                                  device=device) if cpu_cost is not None
+                  else torch.zeros(H, dtype=torch.int64, device=device)),
         cpu_avail=torch.zeros(H, dtype=torch.int64, device=device),
     )

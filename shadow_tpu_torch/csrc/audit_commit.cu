@@ -6,12 +6,16 @@
 //
 // Per host h, in column order k = 0..K-1, for every real event
 // (time != NEVER): digest = digest * MULT + event_key(time, src, h's gid,
-// kind) in wrapping 64-bit arithmetic; count it; track the max time. Then
-// host_events += count, and host_last_t and done_t take the max time where
-// the host committed anything.
+// kind) in wrapping 64-bit arithmetic; count it; track the max of its
+// exec time e_t (the CPU model's shifted time; the same tensor as d_t
+// where the model is off). Then host_events += count, and host_last_t and
+// done_t take that max where the host committed anything. The fold keys on
+// the event's own time, so a chain does not depend on the model
+// (engine.py:1011-1012, 1264-1268 and 1331-1340).
 //
-// Bound: bytes. It reads every cell's time, the src and kind of each
-// committed cell and 36 bytes a host, and writes 40 bytes a host. Design: one thread per host running
+// Bound: bytes. It reads every cell's time, the exec time, src and kind of
+// each committed cell (the exec time is the time itself, read once, where
+// the model is off) and 36 bytes a host, and writes 40 bytes a host. Design: one thread per host running
 // the chain sequentially, as the fold is order-dependent along k; hosts
 // are independent. Unsigned 64-bit arithmetic gives the two's-complement
 // wrap of the JAX package's int64 multiplies and its logical shift.
@@ -39,7 +43,8 @@ __device__ __forceinline__ unsigned long long event_key(long long t,
 }
 
 __global__ void audit_commit_kernel(
-    const long long* __restrict__ d_t, const int* __restrict__ d_s,
+    const long long* __restrict__ d_t, const long long* __restrict__ e_t,
+    const int* __restrict__ d_s,
     const int* __restrict__ d_k, const int* __restrict__ gid,
     const long long* __restrict__ digest, const long long* __restrict__ events,
     const long long* __restrict__ last_t, const long long* __restrict__ done_t,
@@ -57,7 +62,8 @@ __global__ void audit_commit_kernel(
     if (t == kNever) continue;
     dg = dg * kChainMult + event_key(t, d_s[i], me, d_k[i]);
     ++n;
-    last = t > last ? t : last;
+    const long long e = e_t == d_t ? t : e_t[i];
+    last = e > last ? e : last;
   }
   o_digest[h] = (long long)dg;
   o_events[h] = events[h] + n;
@@ -68,7 +74,8 @@ __global__ void audit_commit_kernel(
 
 }  // namespace
 
-extern "C" int audit_commit(const void* d_t, const void* d_s, const void* d_k,
+extern "C" int audit_commit(const void* d_t, const void* e_t,
+                            const void* d_s, const void* d_k,
                             const void* gid, const void* digest,
                             const void* events, const void* last_t,
                             const void* done_t, void* o_digest,
@@ -78,7 +85,8 @@ extern "C" int audit_commit(const void* d_t, const void* d_s, const void* d_k,
     const int threads = 128;
     audit_commit_kernel<<<(H + threads - 1) / threads, threads, 0,
                           (cudaStream_t)stream>>>(
-        (const long long*)d_t, (const int*)d_s, (const int*)d_k,
+        (const long long*)d_t, (const long long*)e_t, (const int*)d_s,
+        (const int*)d_k,
         (const int*)gid, (const long long*)digest, (const long long*)events,
         (const long long*)last_t, (const long long*)done_t,
         (long long*)o_digest, (long long*)o_events, (long long*)o_last_t,

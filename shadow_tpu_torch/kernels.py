@@ -1,7 +1,7 @@
 """The window step's hand-written CUDA kernels, their plain PyTorch
 versions, and the build and ctypes binding.
 
-Twenty kernels carry the window step on the card (sources under
+Twenty-one kernels carry the window step on the card (sources under
 ``csrc/``, one shared library each). Every window of both paths begins
 and ends with two radix sorts:
 
@@ -21,11 +21,21 @@ The PHOLD matrix path runs three more:
   filler rows made in registers.
 * ``phold_forward`` (K1): PHOLD's forwarding over the ``[H, K]`` window —
   ``shadow_tpu/net/apps.py:PholdApp.handle_msg_matrix`` with its threefry
-  draws, plus the per-source seq numbering of ``run_matrix``.
+  draws and its three destination modes (uniform, hot spot, ring
+  offset), plus the per-source seq numbering of ``run_matrix``.
 * ``audit_commit`` (K2): the per-host commit of the window — the audit
   fold (``shadow_tpu/obs/audit.py:fold``, column by column) and the
   per-host event count and frontier updates of ``run_matrix``. The
   micro-step loop path reuses it on each micro-step's taken events.
+
+Where any host has a CPU cost (``cpu_ns_per_event``), both paths run one
+more:
+
+* ``cpu_serialize`` (K21): the CPU model — each host's events execute
+  one after another on its virtual CPU (``shadow_tpu/core/engine.py``:
+  ``run_matrix``'s cummax form over the dense window, the loop body's
+  chain over a micro-step's taken events), with the new CPU clocks and
+  the exact sum of the delays.
 
 The micro-step loop path and the network stack run the other four:
 
@@ -102,6 +112,7 @@ rounded, as XLA and the plain versions compute them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -112,6 +123,7 @@ import tempfile
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from shadow_tpu_torch.core import rng, soa
@@ -132,6 +144,7 @@ DT_MAX = (1 << DT_BITS) - 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 
 @dataclass
@@ -140,12 +153,16 @@ class Kernel:
     count of its launches. ``writes`` maps the positions of the wrapper's
     arguments that the kernel writes in place on the card to where its
     result returns them (``written_result``): a field's name, or
-    ("fields", k) for the k-th tensor of the tuple ``fields``."""
+    ("fields", k) for the k-th tensor of the tuple ``fields``. ``checks``
+    names the library's other C entries and their argument types: entries
+    that run a part of the kernel alone for a check, on no path, so
+    ``_call`` counts no launch."""
 
     name: str
     argtypes: tuple
     launches: int = 0
     writes: dict = field(default_factory=dict)
+    checks: dict = field(default_factory=dict)
 
     @property
     def source(self) -> str:
@@ -163,14 +180,18 @@ PHOLD_FORWARD = Kernel(
     "phold_forward",
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
      _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs
-     _I, _I, _I, _I, _I, _L, _L, _L, _I, _P),
+     _I, _I, _I, _I, _I, _L, _L, _L, _I,
+     _I, _F, _F, _F, _I,  # the pick: hot_n, its three floats, local_span
+     _P),
+    checks={"phold_pick": (_P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _P)},
 )
 AUDIT_COMMIT = Kernel(
     "audit_commit",
-    (_P, _P, _P, _P, _P, _P, _P, _P,  # inputs
+    (_P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
      _P, _P, _P, _P, _P,  # outputs
      _I, _I, _P),
 )
+CPU_SERIALIZE = Kernel("cpu_serialize", (_P, _P, _P, _P, _I, _I, _I, _P))
 LOOP_SELECT = Kernel(
     "loop_select",
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
@@ -243,7 +264,8 @@ _PACK = {"window_sort": struct.Struct("<13q"),
 KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
            LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
            TCP_REORDER, TCP_OUT, SPEC_CHECK, NIC_REFILL, SEND_DEQUEUE,
-           LINK_SEND, NIC_TX, NIC_RX, NIC_GATE, WINDOW_SORT, POOL_MERGE)
+           LINK_SEND, NIC_TX, NIC_RX, NIC_GATE, WINDOW_SORT, POOL_MERGE,
+           CPU_SERIALIZE)
 
 
 def reset_launches() -> None:
@@ -336,9 +358,10 @@ def _lib(k: Kernel):
         if not os.path.exists(path):
             build((k,))
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, k.name)
-        fn.argtypes = list(k.argtypes)
-        fn.restype = ctypes.c_int
+        for name, types in ((k.name, k.argtypes), *k.checks.items()):
+            fn = getattr(lib, name)
+            fn.argtypes = list(types)
+            fn.restype = ctypes.c_int
         _libs[k.name] = lib
     return getattr(lib, k.name)
 
@@ -359,12 +382,22 @@ def _scratch_bytes(k: Kernel, n: int) -> int:
     return b
 
 
-def _launch(k: Kernel, *args) -> None:
-    rc = _lib(k)(*args)
+def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {k.name} failed to launch: "
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+def _launch(k: Kernel, *args) -> None:
+    _raise_on(k.name, _lib(k)(*args))
     k.launches += 1
+
+
+def _call(k: Kernel, entry: str, *args) -> None:
+    """Run the check entry ``entry`` of ``k``'s library; no launch
+    counted."""
+    _lib(k)
+    _raise_on(entry, getattr(_libs[k.name], entry)(*args))
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -764,9 +797,46 @@ class ForwardOut(NamedTuple):
     stats: torch.Tensor  # [H, 4] int64
 
 
-def pick_dst(u: torch.Tensor, my_id: torch.Tensor, num_hosts: int):
-    """PHOLD's uniform destination: skip self, in float32 like the JAX
-    package (``floor(u * (H - 1))``, clipped to [0, H - 2])."""
+@functools.lru_cache(maxsize=None)
+def hot_split(num_hosts: int, hot_n: int, hot_share: float):
+    """The hot variant's three float32 constants (Python floats, each a
+    float32 value): the split ``hs``, and the scales of the hot and the
+    cold draw. The JAX package writes ``floor(u / hs * nh)`` and
+    ``floor((u - hs) / (1 - hs) * (H - nh))``; jitted, XLA folds each
+    division by a constant into a multiply by its float32 reciprocal and
+    the two constant factors into one, so the draws are
+    ``floor(u * f32(f32(1 / hs) * nh))`` and
+    ``floor((u - hs) * f32(f32(1 / f32(1 - hs)) * (H - nh)))``, ``1 - hs``
+    taken in double and rounded once. All 0 without a hot split."""
+    if not hot_n:
+        return 0.0, 0.0, 0.0
+    f32 = np.float32
+    hs = f32(hot_share)
+    c_hot = f32(f32(f32(1) / hs) * f32(hot_n))
+    c_cold = f32(f32(f32(1) / f32(1.0 - hot_share)) * f32(num_hosts - hot_n))
+    return float(hs), float(c_hot), float(c_cold)
+
+
+def pick_dst(u: torch.Tensor, my_id: torch.Tensor, num_hosts: int,
+             hot_n: int = 0, hot_share: float = 0.0, local_span: int = 0):
+    """PHOLD's destination for a float32 uniform draw, as the JAX package's
+    ``PholdApp._pick_dst`` computes it: with ``local_span`` a nonzero ring
+    offset in [-span, span] (``ring_offset_dst``, a floor mod); with
+    ``hot_n`` the first ``hot_share`` of the unit interval to the first
+    ``hot_n`` hosts and the rest to the others (``hot_split``; self-sends
+    allowed), clipped to [0, H - 1]; else uniform, skipping self
+    (``floor(u * (H - 1))`` clipped to [0, H - 2])."""
+    if local_span > 0:
+        span = local_span
+        off = torch.floor(u * float(2 * span)).to(torch.int32)
+        off = off.clamp(0, 2 * span - 1) - span
+        off = off + (off >= 0).to(torch.int32)
+        return torch.remainder(my_id + off, num_hosts).to(torch.int32)
+    if hot_n > 0:
+        hs, c_hot, c_cold = hot_split(num_hosts, hot_n, hot_share)
+        hot = torch.floor(u * c_hot).to(torch.int32)
+        cold = hot_n + torch.floor((u - hs) * c_cold).to(torch.int32)
+        return torch.where(u < hs, hot, cold).clamp(0, num_hosts - 1)
     if num_hosts <= 1:
         return my_id.expand(u.shape).to(torch.int32)
     d = torch.floor(u * float(num_hosts - 1)).to(torch.int32)
@@ -777,8 +847,9 @@ def pick_dst(u: torch.Tensor, my_id: torch.Tensor, num_hosts: int):
 def phold_forward_plain(d_t, d_p, rng_keys, rng_counter, seq_next, gid,
                         vertex, latency_vv, reliability_vv, vertex_g, *,
                         num_hosts: int, stop_sending: int,
-                        bootstrap_end: int, win_end: int,
-                        kind: int) -> ForwardOut:
+                        bootstrap_end: int, win_end: int, kind: int,
+                        hot_n: int = 0, hot_share: float = 0.0,
+                        local_span: int = 0) -> ForwardOut:
     """Plain version, vectorized over [H, K] as the JAX package computes
     it: event k's draws sit at counters c0 + 2·(sends before k) and +1."""
     H, K = d_t.shape
@@ -790,7 +861,7 @@ def phold_forward_plain(d_t, d_p, rng_keys, rng_counter, seq_next, gid,
     u1 = rng.uniform_matrix(rng_keys, off)
     u2 = rng.uniform_matrix(rng_keys, (off + 1) & rng.M32)
     my_id = gid[:, None]
-    dst = pick_dst(u1, my_id, num_hosts)
+    dst = pick_dst(u1, my_id, num_hosts, hot_n, hot_share, local_span)
     if latency_vv.shape[0] == 1:
         lat = latency_vv[0, 0].expand(H, K)
         rel = reliability_vv[0, 0].expand(H, K)
@@ -828,15 +899,19 @@ def phold_forward_plain(d_t, d_p, rng_keys, rng_counter, seq_next, gid,
 def phold_forward(d_t, d_p, rng_keys, rng_counter, seq_next, gid, vertex,
                   latency_vv, reliability_vv, vertex_g, *, num_hosts: int,
                   stop_sending: int, bootstrap_end: int, win_end: int,
-                  kind: int) -> ForwardOut:
+                  kind: int, hot_n: int = 0, hot_share: float = 0.0,
+                  local_span: int = 0) -> ForwardOut:
     """PHOLD forward over one window's [H, K] dense events: draws, the
-    destination pick, latency and loss, and the numbered emission rows."""
+    destination pick (``pick_dst``'s three modes), latency and loss, and
+    the numbered emission rows. ``d_t`` holds the times the events
+    execute at (the CPU model's shifted times where it is on)."""
     args = (d_t, d_p, rng_keys, rng_counter, seq_next, gid, vertex,
             latency_vv, reliability_vv)
     if not _on_card(*args, *(() if vertex_g is None else (vertex_g,))):
         return phold_forward_plain(
             *args, vertex_g, num_hosts=num_hosts, stop_sending=stop_sending,
             bootstrap_end=bootstrap_end, win_end=win_end, kind=kind,
+            hot_n=hot_n, hot_share=hot_share, local_span=local_span,
         )
     H, K = d_t.shape
     PP = d_p.shape[-1]
@@ -867,9 +942,31 @@ def phold_forward(d_t, d_p, rng_keys, rng_counter, seq_next, gid, vertex,
         seq_next=torch.empty(H, dtype=torch.int32, device=dev),
         stats=torch.empty((H, 4), dtype=torch.int64, device=dev),
     )
+    hs, c_hot, c_cold = hot_split(num_hosts, hot_n, hot_share)
     _launch(PHOLD_FORWARD, *ins, *(t.data_ptr() for t in out),
             H, K, PP, U, num_hosts, stop_sending, bootstrap_end, win_end,
-            kind, _stream(d_t))
+            kind, hot_n, hs, c_hot, c_cold, local_span, _stream(d_t))
+    return out
+
+
+def phold_pick(u, my_id, num_hosts: int, hot_n: int = 0,
+               hot_share: float = 0.0, local_span: int = 0) -> torch.Tensor:
+    """``phold_forward``'s device function ``pick_dst`` alone, on given
+    float32 draws ``u`` and senders ``my_id`` (int32, u's shape), on the
+    card: the check entry that sweeps the draws around every split of the
+    destination modes, which the forward's own threefry draws cannot aim
+    at. Not on any path, so it counts no launch."""
+    if not _on_card(u, my_id):
+        raise ValueError("phold_pick runs on the card only (pick_dst is "
+                         "its plain version)")
+    n = u.numel()
+    _check(u, torch.float32, u.shape, "u")
+    _check(my_id, torch.int32, u.shape, "my_id")
+    out = torch.empty_like(my_id)
+    hs, c_hot, c_cold = hot_split(num_hosts, hot_n, hot_share)
+    _call(PHOLD_FORWARD, "phold_pick", u.data_ptr(), my_id.data_ptr(),
+          out.data_ptr(), n, num_hosts, hot_n, hs, c_hot, c_cold,
+          local_span, _stream(u))
     return out
 
 
@@ -888,9 +985,11 @@ class CommitOut(NamedTuple):
     n_valid: torch.Tensor  # int64 events committed this window
 
 
-def audit_commit_plain(d_t, d_s, d_k, gid, host_digest, host_events,
+def audit_commit_plain(d_t, e_t, d_s, d_k, gid, host_digest, host_events,
                        host_last_t, done_t) -> CommitOut:
-    """Plain version: the JAX package's fold over the K columns in order."""
+    """Plain version: the JAX package's fold over the K columns in order,
+    keyed on the event times ``d_t``; the frontiers take the latest of the
+    times ``e_t`` the events executed at."""
     from shadow_tpu_torch.obs import audit
 
     valid = d_t != NEVER
@@ -900,7 +999,7 @@ def audit_commit_plain(d_t, d_s, d_k, gid, host_digest, host_events,
         hd = torch.where(valid[:, j], hd * audit.CHAIN_MULT + keys[:, j],
                          hd)
     n = valid.sum(dim=1)
-    last_t = torch.where(valid, d_t, -1).amax(dim=1)
+    last_t = torch.where(valid, e_t, -1).amax(dim=1)
     return CommitOut(
         host_digest=hd,
         host_events=host_events + n,
@@ -910,11 +1009,13 @@ def audit_commit_plain(d_t, d_s, d_k, gid, host_digest, host_events,
     )
 
 
-def audit_commit(d_t, d_s, d_k, gid, host_digest, host_events, host_last_t,
-                 done_t) -> CommitOut:
+def audit_commit(d_t, e_t, d_s, d_k, gid, host_digest, host_events,
+                 host_last_t, done_t) -> CommitOut:
     """Commit one window's [H, K] dense events per host: fold each event
-    into the audit chain in column order, count it, advance the frontier."""
-    args = (d_t, d_s, d_k, gid, host_digest, host_events, host_last_t,
+    into the audit chain in column order (its time ``d_t``), count it,
+    advance the frontier to the latest time ``e_t`` one executed at (the
+    CPU model's shifted times; ``d_t`` itself where the model is off)."""
+    args = (d_t, e_t, d_s, d_k, gid, host_digest, host_events, host_last_t,
             done_t)
     if not _on_card(*args):
         return audit_commit_plain(*args)
@@ -922,6 +1023,7 @@ def audit_commit(d_t, d_s, d_k, gid, host_digest, host_events, host_last_t,
     dev = d_t.device
     ins = (
         _check(d_t, torch.int64, (H, K), "d_t"),
+        _check(e_t, torch.int64, (H, K), "e_t"),
         _check(d_s, torch.int32, (H, K), "d_s"),
         _check(d_k, torch.int32, (H, K), "d_k"),
         _check(gid, torch.int32, (H,), "gid"),
@@ -935,6 +1037,82 @@ def audit_commit(d_t, d_s, d_k, gid, host_digest, host_events, host_last_t,
     _launch(AUDIT_COMMIT, *ins, *(t.data_ptr() for t in out), H, K,
             _stream(d_t))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K21 cpu_serialize
+# ---------------------------------------------------------------------------
+
+# the matrix form's floor for an empty cell (the JAX package's sentinel)
+CPU_EMPTY = -(1 << 62)
+
+
+class Serialized(NamedTuple):
+    """The CPU model's result for one window pass (matrix) or micro-step
+    (loop)."""
+
+    exec_t: torch.Tensor  # [H, W] int64: when each event executes
+    cpu_avail: torch.Tensor  # [H] int64: each host's CPU free from
+    delay: torch.Tensor  # [] int64: sum of exec - time over real events
+
+
+def cpu_serialize_plain(t, cost, cpu_avail, matrix: bool) -> Serialized:
+    """Plain version: each host's events, in column order, execute at
+    ``exec_k = max(t_k, exec_{k-1} + cost)`` from ``exec_{-1} + cost =
+    cpu_avail``, each path in the JAX package's own form (they agree where
+    a host's real events, time != NEVER, are a prefix of its row).
+
+    ``matrix`` (``run_matrix``, shadow_tpu/core/engine.py:1224-1254): a
+    cummax of ``t_k - k·cost`` over real cells (``CPU_EMPTY`` on empty
+    ones) floored at ``cpu_avail``; an empty cell keeps its time; the last
+    exec time is the cell at index (real count - 1). Else the loop body's
+    chain (engine.py:904-966) over every column, empty ones included
+    (where ``NEVER + cost`` wraps); the last exec time is the last real
+    column's. ``cpu_avail`` moves to last + cost where the host has a real
+    event (column 0's, on the loop path)."""
+    H, W = t.shape
+    valid = t != NEVER
+    if matrix:
+        c = cost[:, None]
+        ks = torch.arange(W, dtype=torch.int64, device=t.device)[None, :]
+        shifted = torch.where(valid, t - ks * c, CPU_EMPTY)
+        u = torch.cummax(shifted, dim=1).values
+        u = torch.maximum(u, cpu_avail[:, None])
+        exec_t = torch.where(valid, u + ks * c, t)
+        n = valid.sum(dim=1)
+        last = exec_t.gather(1, (n - 1).clamp(min=0)[:, None])[:, 0]
+        busy = n > 0
+    else:
+        cols = [torch.maximum(t[:, 0], cpu_avail)]
+        last = cols[0]
+        for k in range(1, W):
+            cols.append(torch.maximum(t[:, k], cols[-1] + cost))
+            last = torch.where(valid[:, k], cols[-1], last)
+        exec_t = torch.stack(cols, dim=1)
+        busy = valid[:, 0]
+    return Serialized(
+        exec_t=exec_t,
+        cpu_avail=torch.where(busy, last + cost, cpu_avail),
+        delay=torch.where(valid, exec_t - t, 0).sum(),
+    )
+
+
+def cpu_serialize(t, cost, cpu_avail, matrix: bool) -> Serialized:
+    """The CPU model over one window's [H, W] event times (``matrix``: the
+    dense window, W = K) or one micro-step's taken events (W = G): one
+    launch, a thread a host; the delay sum is exact (int64 atomics)."""
+    if not _on_card(t, cost, cpu_avail):
+        return cpu_serialize_plain(t, cost, cpu_avail, matrix)
+    H, W = t.shape
+    ins = (_check(t, torch.int64, (H, W), "t"),
+           _check(cost, torch.int64, (H,), "cost"),
+           _check(cpu_avail, torch.int64, (H,), "cpu_avail"))
+    buf = torch.empty(H * W + H + 1, dtype=torch.int64, device=t.device)
+    _launch(CPU_SERIALIZE, *ins, buf.data_ptr(), H, W, int(bool(matrix)),
+            _stream(t))
+    return Serialized(
+        exec_t=buf[:H * W].view(H, W), cpu_avail=buf[H * W:H * W + H],
+        delay=buf[H * W + H])
 
 
 # ---------------------------------------------------------------------------
@@ -2709,6 +2887,7 @@ class WindowOps(NamedTuple):
     nic_tx: object
     nic_rx: object
     nic_gate: object
+    cpu_serialize: object
 
 
 # the wrappers: the kernels on the card, the plain versions on the CPU
@@ -2717,7 +2896,7 @@ KERNEL_OPS = WindowOps(window_sort, pool_merge, extract_slots,
                        loop_select, loop_route, codel_dequeue, ring_append,
                        tcp_demux, tcp_ack, tcp_reorder, tcp_out, spec_check,
                        nic_refill, send_dequeue, link_send, nic_tx, nic_rx,
-                       nic_gate)
+                       nic_gate, cpu_serialize)
 # the plain versions on any device (the on-card comparison run)
 PLAIN_OPS = WindowOps(window_sort_plain, pool_merge_plain,
                       extract_slots_plain, phold_forward_plain,
@@ -2726,4 +2905,4 @@ PLAIN_OPS = WindowOps(window_sort_plain, pool_merge_plain,
                       tcp_demux_plain, tcp_ack_plain, tcp_reorder_plain,
                       tcp_out_plain, spec_check_plain, nic_refill_plain,
                       send_dequeue_plain, link_send_plain, nic_tx_plain,
-                      nic_rx_plain, nic_gate_plain)
+                      nic_rx_plain, nic_gate_plain, cpu_serialize_plain)

@@ -6,10 +6,10 @@ The JAX package's ``net/apps.py``:
 * PHOLD (the reference's PDES canary, src/test/phold): each received
   message is forwarded to a random peer over the simulated network; the
   message population is hosts × msgload; senders stop once simulated time
-  passes ``runtime``. Its uniform-destination form runs on the matrix
-  path (``handle_msg_matrix``) and the loop path (``handle_msg``); the
-  hot-spot and local-span variants are not ported yet (``ROADMAP.md``,
-  queue A).
+  passes ``runtime``. It runs on the matrix path (``handle_msg_matrix``)
+  and the loop path (``handle_msg``), with uniform destinations or one of
+  two variants: a hot spot (``hot_frac``/``hot_share``) or a ring
+  neighbourhood (``local_span``).
 * ``UdpFloodApp`` (BASELINE config 2): clients send a datagram to a
   server every interval through the full NIC / router / token-bucket
   path.
@@ -75,16 +75,35 @@ class PholdApp:
         hot_share: float = 0.0,
         local_span: int = 0,
     ):
-        if hot_frac or hot_share or local_span:
-            raise NotImplementedError(
-                "phold hot_frac/hot_share and local_span are not ported to "
-                "shadow_tpu_torch yet (ROADMAP.md queue A: PHOLD variants)"
-            )
         self.num_hosts = num_hosts
         self.msgload = msgload
         self.size_bytes = size_bytes
         self.start_time = start_time
         self.stop_sending = start_time + runtime
+        # the locality-biased variant: forwards target a ring neighbourhood
+        # of +-local_span host ids around the sender; 0 = classic PHOLD
+        self.local_span = int(local_span)
+        if self.local_span < 0 or self.local_span >= num_hosts:
+            raise ValueError("phold local_span must be in [0, num_hosts)")
+        if self.local_span and (hot_frac > 0 or hot_share > 0):
+            raise ValueError(
+                "phold local_span and hot_frac/hot_share are exclusive")
+        # the skewed variant: hot_share of all messages target the first
+        # hot_frac of the hosts (self-sends allowed: they arrive at
+        # +latency, inside the bulk contract); 0 = classic PHOLD
+        self.hot_frac = float(hot_frac)
+        self.hot_share = float(hot_share)
+        if (self.hot_frac > 0) != (self.hot_share > 0):
+            raise ValueError(
+                "phold hot_frac and hot_share must be set together")
+        if not (0.0 <= self.hot_share < 1.0) or not (
+                0.0 <= self.hot_frac <= 1.0):
+            raise ValueError("hot_share must be in [0,1), hot_frac in [0,1]")
+        self.hot_n = (max(1, int(num_hosts * self.hot_frac))
+                      if self.hot_frac > 0 else 0)
+        # pick_dst's keyword arguments
+        self.pick = dict(hot_n=self.hot_n, hot_share=self.hot_share,
+                         local_span=self.local_span)
 
     def init_sub(self, device=None) -> dict:
         H = self.num_hosts
@@ -117,7 +136,8 @@ class PholdApp:
         sub["received"] = sub["received"] + ev.mask.to(torch.int64)
         send = ev.mask & (ev.time < self.stop_sending)
         state, u = draw_uniform(state, send)
-        dst = kernels.pick_dst(u, state.host.gid, self.num_hosts)
+        dst = kernels.pick_dst(u, state.host.gid, self.num_hosts,
+                               **self.pick)
         sub["forwarded"] = sub["forwarded"] + send.to(torch.int64)
         state = state.with_sub(self.SUB, sub)
         return link.send(state, emitter, send, dst, ev.time, KIND_APP_MSG,
@@ -130,7 +150,9 @@ class PholdApp:
                           win_end: int,
                           ops: kernels.WindowOps) -> kernels.ForwardOut:
         """Forward every message of the window's dense [H, K] matrix (the
-        kernel ``phold_forward``). Updates the draw counters, the app
+        kernel ``phold_forward``), each at ``dense.time``: the time it
+        executes at (the engine's CPU model shifts it where the model is
+        on). Updates the draw counters, the app
         sub-state and the packet counters; returns the numbered emission
         rows for the engine. Event k's draws sit at counters
         c0 + 2·(sends before k) and +1, which needs every destination
@@ -142,7 +164,7 @@ class PholdApp:
             params.reliability_vv, params.vertex_g,
             num_hosts=self.num_hosts, stop_sending=self.stop_sending,
             bootstrap_end=params.bootstrap_end, win_end=win_end,
-            kind=KIND_APP_MSG,
+            kind=KIND_APP_MSG, **self.pick,
         )
         h.rng_counter = fw.rng_counter
         sub = state.subs[self.SUB]

@@ -41,8 +41,6 @@ def _refuse_unported(cfg: Config) -> None:
         (x.flight_recorder > 0, "the flight recorder", "A 8"),
         (not x.obs_counters or not x.audit_digest,
          "running without the obs block and audit chain", "A 8"),
-        (any(h.cpu_ns_per_event for h in cfg.hosts),
-         "the CPU model (cpu_ns_per_event)", "A 4"),
         (x.packet_trails, "packet trails (packet_trails)", "A 7"),
     ]
     for bad, what, item in unported:
@@ -115,12 +113,17 @@ def build_simulation(source, device=None) -> Simulation:
             stacklevel=2,
         )
     x = cfg.experimental
+    # the CPU model's cost per host (shadow_tpu/sim.py:276); the engine
+    # turns the model on where any is above 0
+    cpu_cost = np.array([h.cpu_ns_per_event for h in cfg.hosts],
+                        dtype=np.int64)
     common = dict(
         num_hosts=len(cfg.hosts), params=params,
         host_vertex=baked.host_vertex, seed=cfg.general.seed,
         stop_time=cfg.general.stop_time, runahead=runahead,
         event_capacity=x.event_capacity, K=x.events_per_host_per_window,
-        B=x.inbox_slots, O=x.outbox_slots, device=dev,
+        B=x.inbox_slots, O=x.outbox_slots,
+        cpu_ns_per_event=cpu_cost, device=dev,
     )
     if "phold" in app_names:
         sim, app = _build_phold(cfg, baked, common)

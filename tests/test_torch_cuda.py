@@ -29,7 +29,13 @@ them after appending to both rings; the NIC's admission kernels
 tables (token debt, NEVER lanes, both sides of the end of bootstrap,
 queued NICs and full or wrapped router rings, loopback, unreachable and
 lossy paths, control packets, one ``now`` or ``dst`` for every host, a
-window wholly inside bootstrap), one launch a call.
+window wholly inside bootstrap), one launch a call. ``phold_forward``
+also runs PHOLD's hot-spot and local-span variants, and its pick alone
+(``kernels.phold_pick``) every draw the uniform takes and the float32
+values around each split; ``cpu_serialize`` takes seeded rows (empty
+tails and hosts, an empty cell between real ones, cost-0 hosts, CPU
+clocks past the window) in both forms, and whole runs with the CPU model
+on both paths; ``audit_commit`` takes exec times apart from its times.
 
 Marked ``cuda``: the card decides inside the fixture, and the tests skip
 where there is none. This file imports neither jax nor the JAX package,
@@ -45,7 +51,7 @@ import torch
 from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core import engine
 from shadow_tpu_torch.core.simtime import NEVER
-from shadow_tpu_torch.flagship import build_phold_flagship
+from shadow_tpu_torch.flagship import SELF_LOOP_50MS_GML, build_phold_flagship
 from shadow_tpu_torch.sim import build_simulation
 
 pytestmark = pytest.mark.cuda
@@ -365,6 +371,149 @@ def test_phold_forward_matches_plain(card):
                     kernels.phold_forward_plain(*args, **kw))
 
 
+def _variant(device, **opts):
+    """The flagship's shape at 64 hosts with PHOLD options ``opts``, hot
+    hosts past K = 8 where hot."""
+    return build_simulation({
+        "general": {"stop_time": 3, "seed": 11},
+        "network": {"graph": {"type": "gml", "inline": SELF_LOOP_50MS_GML}},
+        "experimental": {"event_capacity": 1024,
+                         "events_per_host_per_window": 8,
+                         "outbox_slots": 8, "inbox_slots": 4},
+        "hosts": {"peer": {"quantity": 64, "app_model": "phold",
+                           "app_options": {"msgload": 4, "runtime": 2,
+                                           **opts}}},
+    }, device=device)
+
+
+@pytest.mark.parametrize("opts", [
+    {"hot_frac": 0.125, "hot_share": 0.5},
+    {"hot_frac": 0.13, "hot_share": 0.3},
+    {"local_span": 2},
+    {"local_span": 31},
+])
+def test_phold_forward_variants_match_plain(card, opts):
+    sim = _variant(card, **opts)
+    H, K, p, app = sim.num_hosts, sim.K, sim.params, sim.app
+    for st, ws, we in _windows(sim, 6):
+        dense, _ = engine.dense_extract(st.pool, ws, we, H, K,
+                                        kernels.PLAIN_OPS)
+        h = st.host
+        args = (dense.time, dense.payload, st.rng_keys, h.rng_counter,
+                h.seq_next, h.gid, h.vertex, p.latency_vv, p.reliability_vv,
+                p.vertex_g)
+        kw = dict(num_hosts=H, stop_sending=app.stop_sending,
+                  bootstrap_end=p.bootstrap_end, win_end=we, kind=1,
+                  **app.pick)
+        _eq(kernels.phold_forward(*args, **kw),
+            kernels.phold_forward_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("H,opts", [
+    (1000, {}),
+    (16384, {"hot_frac": 0.125, "hot_share": 0.5}),
+    (1000, {"hot_frac": 0.13, "hot_share": 0.3}),
+    (777, {"hot_frac": 0.3, "hot_share": 0.6}),
+    (16384, {"local_span": 2}),
+    (5, {"local_span": 4}),
+])
+def test_phold_pick_matches_plain_on_swept_draws(card, H, opts):
+    """phold_forward's pick on every draw the uniform takes and the
+    float32 values around each split (chip_smoke.pick_sweep)."""
+    from chip_smoke import pick_sweep
+    from shadow_tpu_torch.net.apps import PholdApp
+
+    app = PholdApp(H, **opts)
+    u, me = (torch.as_tensor(x, device=card)
+             for x in pick_sweep(H, **app.pick))
+    got = kernels.phold_pick(u, me, H, **app.pick)
+    assert torch.equal(got, kernels.pick_dst(u, me, H, **app.pick))
+
+
+def random_serialize(rs, H, W, device):
+    """(t, cost, cpu_avail) for cpu_serialize: each host's sorted times
+    with an empty tail, hosts with nothing, an empty cell between real
+    ones, cost-0 hosts, CPU clocks at 0, inside and past the window."""
+    t = np.sort(rs.integers(10**9, 10**9 + 50_000_000, (H, W)), axis=1)
+    n = rs.integers(0, W + 1, H)
+    t[np.arange(W)[None, :] >= n[:, None]] = NEVER
+    t[rs.random(H) < 0.05] = NEVER
+    if W > 3:
+        t[rs.random(H) < 0.05, W // 2] = NEVER
+    cost = rs.choice([0, 1, 5_000_000, 10_000_000], H).astype(np.int64)
+    avail = rs.integers(10**9, 10**9 + 200_000_000, H)
+    avail[rs.random(H) < 0.3] = 0
+    avail[rs.random(H) < 0.1] = 10**9 + 10**10
+    return tuple(torch.as_tensor(x, device=device) for x in (t, cost, avail))
+
+
+@pytest.mark.parametrize("matrix", [True, False])
+@pytest.mark.parametrize("H,W", [(1000, 24), (4097, 8), (37, 1), (129, 33)])
+def test_cpu_serialize_matches_plain(card, matrix, H, W):
+    args = random_serialize(np.random.default_rng(H * W), H, W, card)
+    n = kernels.CPU_SERIALIZE.launches
+    got = kernels.cpu_serialize(*args, matrix)
+    assert kernels.CPU_SERIALIZE.launches == n + 1
+    want = kernels.cpu_serialize_plain(*args, matrix)
+    _eq(got, want)
+    # events were delayed (the delay's sum may wrap: on the loop form a
+    # real cell after an empty one of a cost-0 host executes at NEVER, as
+    # the JAX package's chain computes it; the loop path's taken events
+    # are a prefix, so it never gets such a row)
+    assert bool(((want.exec_t != args[0]) & (args[0] != NEVER)).any())
+
+
+def test_cpu_model_runs_match_plain_runs(card):
+    """PHOLD with a quarter of its hosts at 10 ms an event (the matrix
+    path) and a flood with its servers at 5 ms (the loop path): through
+    the kernels and the plain versions, the same counters, chain and
+    state; cpu_serialize launched once a window pass, or once a micro-step
+    that commits."""
+    from shadow_tpu_torch import interop
+
+    flood = {
+        "general": {"stop_time": 2, "seed": 7},
+        "network": {"graph": {"type": "gml", "inline": SELF_LOOP_50MS_GML}},
+        "experimental": {"event_capacity": 4096,
+                         "events_per_host_per_window": 8},
+        "hosts": {"server": {"quantity": 4, "app_model": "udp_flood",
+                             "app_options": {"role": "server"},
+                             "cpu_ns_per_event": "5 ms"},
+                  "client": {"quantity": 28, "app_model": "udp_flood",
+                             "app_options": {"interval": "20 ms",
+                                             "runtime": 1}}},
+    }
+    phold = {"general": {"stop_time": 3, "seed": 11},
+             "network": {"graph": {"type": "gml",
+                                   "inline": SELF_LOOP_50MS_GML}},
+             "experimental": {"event_capacity": 1024,
+                              "events_per_host_per_window": 8,
+                              "outbox_slots": 8, "inbox_slots": 4},
+             "hosts": {
+                 "peer": {"quantity": 48, "app_model": "phold",
+                          "app_options": {"msgload": 4, "runtime": 2}},
+                 "loaded": {"quantity": 16, "app_model": "phold",
+                            "app_options": {"msgload": 4, "runtime": 2},
+                            "cpu_ns_per_event": "10 ms"}}}
+    for cfg in (phold, flood):
+        a = build_simulation(cfg, device=card)
+        b = build_simulation(cfg, device=card)
+        b.ops = kernels.PLAIN_OPS
+        kernels.reset_launches()
+        wa = a.run()
+        n = kernels.CPU_SERIALIZE.launches
+        assert n == (wa if cfg is phold else kernels.AUDIT_COMMIT.launches)
+        assert b.run() == wa
+        assert kernels.CPU_SERIALIZE.launches == n
+        assert a.counters() == b.counters()
+        assert a.counters()["cpu_delay_applied"] > 0
+        assert a.audit_chain() == b.audit_chain()
+        na = interop.state_to_numpy(a.state)
+        nb = interop.state_to_numpy(b.state)
+        for path in na:
+            assert np.array_equal(na[path], nb[path]), path
+
+
 def test_audit_commit_matches_plain(card):
     rs = np.random.default_rng(9)
     for sim in _sims(card):
@@ -376,9 +525,14 @@ def test_audit_commit_matches_plain(card):
             digest = torch.as_tensor(
                 rs.integers(-2**63, 2**63 - 1, H, dtype=np.int64),
                 device=card)
-            for dg in (ob.host_digest, digest):
-                args = (dense.time, dense.src, dense.kind, st.host.gid, dg,
-                        ob.host_events, ob.host_last_t, st.host.done_t)
+            # exec times: the times (the CPU model off), or shifted later
+            shift = torch.as_tensor(rs.integers(0, 2**30, (H, K)),
+                                    device=card)
+            shifted = torch.where(dense.time != NEVER, dense.time + shift,
+                                  dense.time)
+            for dg, e_t in ((ob.host_digest, dense.time), (digest, shifted)):
+                args = (dense.time, e_t, dense.src, dense.kind, st.host.gid,
+                        dg, ob.host_events, ob.host_last_t, st.host.done_t)
                 _eq(kernels.audit_commit(*args),
                     kernels.audit_commit_plain(*args))
 
@@ -419,7 +573,7 @@ def test_kernels_refuse_bad_arguments(card):
             8, dtype=torch.int64, device=card)[::2], *args[3:])
     t = torch.full((4, 3), NEVER, dtype=torch.int64, device=card)
     with pytest.raises(ValueError):
-        kernels.audit_commit(t, t, t, t, t, t, t, t)
+        kernels.audit_commit(t, t, t, t, t, t, t, t, t)
     from chip_smoke import synthetic_tcp_reorder
 
     args, kw = synthetic_tcp_reorder(64, 2, 65, card)

@@ -351,7 +351,7 @@ def test_port_refuses_what_it_does_not_run():
                             "cpu_ns_per_event": cpu_ns}},
         }
 
-    for bad, match in ((cfg("tcp_bulk", cpu_ns=1000), "A 4"),
+    for bad, match in ((cfg("tcp_bulk", cpu_ns=1000, pool_gears=2), "A 6"),
                        (cfg(interface_qdisc="roundrobin",
                             packet_trails=True), "A 7")):
         with pytest.raises(BuildError, match=match):

@@ -138,8 +138,15 @@ def test_port_refuses_what_it_does_not_run():
         build_phold_flagship(40, msgload=2, K=3, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_phold_flagship(64, num_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PholdApp(8, hot_frac=0.1, hot_share=0.5)
+    with pytest.raises(BuildError, match="A 6"):
+        build_simulation({
+            "general": {"stop_time": 2},
+            "network": {"graph": {"type": "1_gbit_switch"}},
+            "experimental": {"pool_gears": 2},
+            "hosts": {"h": {"quantity": 2, "app_model": "phold",
+                            "app_options": {"hot_frac": 0.5,
+                                            "hot_share": 0.5}}},
+        }, device="cpu")
     # occupancy at the spill mark, where the JAX package would spill
     sim = build_phold_flagship(64, msgload=2, event_capacity=140,
                                device="cpu")
@@ -160,6 +167,7 @@ def test_port_refuses_what_it_does_not_run():
         build_simulation({
             "general": {"stop_time": 2},
             "network": {"graph": {"type": "1_gbit_switch"}},
+            "experimental": {"flight_recorder": 8},
             "hosts": {"h": {"quantity": 2, "app_model": "phold",
                             "cpu_ns_per_event": 1000}},
         }, device="cpu")

@@ -113,3 +113,18 @@ def test_wrappers_take_no_other_device():
     merged = kernels.pool_merge([block, block], 4)
     assert merged.time.device.type == "cpu"
     assert kernels.POOL_MERGE.launches == 0
+    # K21 cpu_serialize: each of its three tensors elsewhere is refused
+    ser = (torch.tensor([[5, 7], [9, 2**63 - 1]]), torch.tensor([3, 0]),
+           torch.tensor([0, 20]))
+    for i in range(3):
+        moved = tuple(x.to("meta") if j == i else x for j, x in
+                      enumerate(ser))
+        with pytest.raises(ValueError):
+            kernels.cpu_serialize(*moved, True)
+    out = kernels.cpu_serialize(*ser, True)
+    assert out.exec_t.tolist() == [[5, 8], [20, 2**63 - 1]]
+    assert int(out.delay) == 12 and kernels.CPU_SERIALIZE.launches == 0
+    # phold_forward's pick on swept draws exists on the card only
+    with pytest.raises(ValueError, match="card"):
+        kernels.phold_pick(torch.zeros(2), torch.zeros(2, dtype=torch.int32),
+                           4)
