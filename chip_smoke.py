@@ -21,17 +21,21 @@ their NICs; and four paths of PHOLD's variants and the CPU model: the
 bench shape with its hot-spot variant (``PHOLD_HOT``), its local-span
 variant (``PHOLD_LOCAL``) and a quarter of its hosts at 10 ms of CPU an
 event (``PHOLD_CPU``), and config 2 with its servers at 5 ms an event
-(``CONFIG2_CPU``). Phases, each printing its numbers beside the card's
-name and power limit:
+(``CONFIG2_CPU``); and the two paths of the device-queue disciplines:
+config 2 with its clients' uplinks starved to 300 Kbit under
+``configs/incast.yaml``'s pifo section (WFQ, RED; ``CONFIG2_PIFO``) and
+under eiffel with WFQ and the CoDel hook (``CONFIG2_EIFFEL``). Phases,
+each printing its numbers beside the card's name and power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the twenty-one CUDA kernels from ``shadow_tpu_torch/csrc`` with
-   nvcc (one process per source, all at once) and print ptxas's register
-   and shared-memory report, and for ``loop_select``, ``loop_route``,
-   ``ring_append``, ``tcp_ack``, ``tcp_reorder``, ``tcp_out``, ``nic_tx``,
-   ``nic_rx``, ``nic_gate``, ``extract_slots``, ``phold_forward``,
-   ``window_sort``, ``pool_merge`` and ``cpu_serialize`` each entry
-   function's registers, shared memory and spill bytes;
+2. build the twenty-three CUDA kernels from ``shadow_tpu_torch/csrc``
+   with nvcc (one process per source, all at once) and print ptxas's
+   register and shared-memory report, and for ``loop_select``,
+   ``loop_route``, ``ring_append``, ``tcp_ack``, ``tcp_reorder``,
+   ``tcp_out``, ``nic_tx``, ``nic_rx``, ``nic_gate``, ``extract_slots``,
+   ``phold_forward``, ``window_sort``, ``pool_merge``, ``cpu_serialize``,
+   ``qdisc_enqueue`` and ``qdisc_dequeue`` each entry function's
+   registers, shared memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
@@ -96,8 +100,8 @@ name and power limit:
     summing to 8,960 × 64 KiB, every kernel of the path launched; the
     counters, TCP counters and audit chain equal to the JAX package's
     reference values below;
-11. config 3 with the plain versions on the card: counters, chain and
-    every state array equal to phase 10's;
+11. config 3 to ``PHASE11_STOP_S`` through the kernels and the plain
+    versions on the card: counters, chain and every state array equal;
 12. the kernels of config 4's path (K12 ``spec_check``, K16
     ``nic_tx``, K17 ``nic_rx``, K18 ``nic_gate`` and the loop path's) on
     their busiest call in an optimistic window of config 4, those of the
@@ -153,14 +157,40 @@ name and power limit:
     array (``cpu_avail`` among them) equal; and ``phold_cpu`` to the
     same cut through ``run_stepwise``: the same windows, counters, chain
     and state as ``run``'s. K21 must launch on none of the six earlier
-    paths.
+    paths;
+18. each qdisc path (``QDISC_PATHS``) to ``QDISC_CUT_S`` through the
+    kernels and the plain versions on the card: windows, counters, chain
+    and every state array equal; every kernel of ``QDISC_PATH`` on its
+    busiest call over the next windows (``QDISC_CAPTURE_WINDOWS``), K22
+    ``qdisc_enqueue`` and K23 ``qdisc_dequeue`` among them, equal bit for
+    bit to its plain version (the in-place kernels on clones, every cell
+    they leave as it was checked) and timed beside its bound; one window
+    alone and under the profiler; and K22 and K23 on synthetic
+    full-width planes of every discipline, ranker, drop policy and
+    shaping (``synthetic_qdisc_plane``: PIFO's mid-row insert and
+    Eiffel's wrapped scan, which the flood's tail inserts never take,
+    and ranks near the int64 limits), against their plain versions;
+19. each qdisc path from t = 0 to the stop in one ``run()`` through the
+    kernels, launch counts set to 0 just before it and read just after:
+    windows, every counter, the chain and a digest of the final qdisc
+    plane (``qdisc_digest``) equal to the JAX package's (``REF_QDISC``),
+    every kernel of ``QDISC_PATH`` launched and no other (no
+    ``send_dequeue``: the discipline replaces the NIC's ring);
+20. the pifo path with the clients' class shaped to 200 Kbit
+    (``CONFIG2_PIFO_SHAPED``, cut to ``QDISC_CUT_S``) through the
+    kernels, equal to the JAX package's values, and through the plain
+    versions, state by state; and a rolled-back attempt of the mixed
+    flood at 200 Kbit under pifo, after the qdisc kernels wrote its
+    snapshot's plane in place, that leaves its base as it was. K22 and
+    K23 must launch on none of the ten earlier paths.
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
 The line has one entry for each kernel on each main path (``path``
 "phold", "config2", "config3", "config4", "mixed", "config3_100mbit",
-"phold_hot", "phold_local", "phold_cpu" or "config2_cpu"): its
-``launches`` in that path's run (phase 4, 7, 10, 13, 14, 12 or 16), and
-its times and bound on that path's inputs (phase 3, 6, 9, 12 or 15);
+"phold_hot", "phold_local", "phold_cpu", "config2_cpu", "config2_pifo"
+or "config2_eiffel"): its ``launches`` in that path's run (phase 4, 7,
+10, 13, 14, 12, 16 or 19), and its times and bound on that path's inputs
+(phase 3, 6, 9, 12, 15 or 18);
 ``ms`` is the device time, ``issue_ms`` the issue time,
 ``library_ms`` the ``torch.sort`` yardstick of the two sorts (null for
 the other kernels).
@@ -174,12 +204,14 @@ PyTorch/CUDA port", gives the commands):
 ``sim.run()``, configs 2 and 3 (``CONFIG2`` and ``CONFIG3`` below)
 through ``shadow_tpu.sim.build_simulation`` then ``sim.run()``, and
 config 4 and the mixed run (``CONFIG4``, ``MIXED``) through
-``build_simulation`` then ``sim.run_optimistic()``, and the four new
-paths through ``build_simulation`` then ``sim.run()``.
+``build_simulation`` then ``sim.run_optimistic()``, the four new
+paths through ``build_simulation`` then ``sim.run()``, and the qdisc
+paths with ``python tools/qdisc_reference.py``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import subprocess
@@ -329,6 +361,53 @@ CONFIG2_CPU = {**CONFIG2, "hosts": {
     "client": {**CONFIG2["hosts"]["client"],
                "cpu_ns_per_event": 25_000_000}}}
 
+
+def qdisc_config(qdisc: dict, stop_time: int | None = None) -> dict:
+    """Config 2 with its clients' uplinks starved to 300 Kbit (each
+    client's ≈421 Kbit/s of wire bytes queues at its NIC) and the
+    ``qdisc:`` section ``qdisc``; ``stop_time`` in seconds cuts it."""
+    general = dict(CONFIG2["general"])
+    if stop_time is not None:
+        general["stop_time"] = stop_time
+    return {**CONFIG2, "general": general, "qdisc": qdisc, "hosts": {
+        "server": CONFIG2["hosts"]["server"],
+        "client": {**CONFIG2["hosts"]["client"],
+                   "bandwidth_up": "300 Kbit"}}}
+
+
+# the device-queue disciplines' paths: configs/incast.yaml's section
+# (pifo, WFQ, RED) and an Eiffel section with the CoDel hook, the
+# override prefixes naming this config's hosts
+QDISC_OVERRIDES = {"client": 0, "server": 1}
+PIFO_SECTION = {
+    "discipline": "pifo", "rank": "wfq", "classes": 2, "weights": [1, 4],
+    "drop": "red", "red_min_frac": 0.25, "red_max_frac": 0.75,
+    "red_max_p": 0.1, "queue_slots": 32, "overrides": QDISC_OVERRIDES}
+EIFFEL_SECTION = {
+    "discipline": "eiffel", "rank": "wfq", "classes": 2, "weights": [1, 4],
+    "buckets": 16, "bucket_width": 4096, "drop": "codel",
+    "queue_slots": 64, "overrides": QDISC_OVERRIDES}
+CONFIG2_PIFO = qdisc_config(PIFO_SECTION)
+CONFIG2_EIFFEL = qdisc_config(EIFFEL_SECTION)
+# the cut runs of the qdisc paths stop here (s; the clients send from
+# 1 s); the shaped one shapes the clients' class to 200 Kbit, so that
+# K22's eligibility term runs
+QDISC_CUT_S = 1.1
+CONFIG2_PIFO_SHAPED = qdisc_config(
+    {**PIFO_SECTION, "shaping": {0: "200 Kbit"}}, stop_time=QDISC_CUT_S)
+
+
+def qdisc_digest(arrays: dict) -> str:
+    """A digest of every ``subs.qdisc.*`` array of a state flattened by
+    the interop paths (each path, dtype, shape and bytes, in path
+    order)."""
+    h = hashlib.sha256()
+    for path in sorted(p for p in arrays if p.startswith("subs.qdisc.")):
+        a = np.ascontiguousarray(arrays[path])
+        h.update(f"{path} {a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
 # The JAX package's values for the variants and the CPU model at full
 # width and depth: build_simulation(cfg) then sim.run() on a CPU (config 2
 # with windows_per_dispatch=32), windows from obs_snapshot()["win"].
@@ -360,6 +439,46 @@ REF_NEW = {
             micro_steps=723, outbox_stall_deferred=367_676,
             packets_delivered=1_074_147, packets_dropped_loss=1_053,
             packets_sent=1_075_200)},
+}
+
+
+# The JAX package's values for the device-queue disciplines' paths at full
+# width and depth, and for the shaped pifo cut to QDISC_CUT_S: windows,
+# every counter, the audit chain and qdisc_digest of the final
+# subs["qdisc"] (JAX_PLATFORMS=cpu python tools/qdisc_reference.py on a
+# CPU prints them: ≈62 min for each whole path, ≈2 min for the cut).
+# The two disciplines commit the same history: each client's queue holds
+# one flow class, so WFQ serves it in arrival order, its pump sends
+# whenever its tokens allow, and what a discipline drops is a queued
+# packet like the one it sends next; the planes differ.
+REF_QDISC = {
+    "config2_pifo": {
+        "windows": 756, "audit_chain": 0x5227644F4F211922,
+        "qdisc_digest": "704bf333e187a293",
+        "counters": all_counters(
+            bytes_delivered=971_623_424, bytes_sent=999_147_520,
+            events_committed=28_868_211, events_emitted=28_877_171,
+            micro_steps=25_766, outbox_stall_deferred=99_981_018,
+            packets_delivered=948_851, packets_dropped_loss=909,
+            packets_sent=949_760)},
+    "config2_eiffel": {
+        "windows": 756, "audit_chain": 0x5227644F4F211922,
+        "qdisc_digest": "563a6024243bc4ab",
+        "counters": all_counters(
+            bytes_delivered=971_623_424, bytes_sent=999_147_520,
+            events_committed=28_868_211, events_emitted=28_877_171,
+            micro_steps=25_766, outbox_stall_deferred=99_981_018,
+            packets_delivered=948_851, packets_dropped_loss=909,
+            packets_sent=949_760)},
+    "config2_pifo_shaped": {
+        "windows": 15, "audit_chain": 0xBC8A2C67BC262D8C,
+        "qdisc_digest": "958a991195f00a79",
+        "counters": all_counters(
+            bytes_delivered=36_658_176, bytes_sent=37_703_680,
+            events_committed=671_959, events_emitted=680_919,
+            micro_steps=456, outbox_stall_deferred=1_526_993,
+            packets_delivered=35_799, packets_dropped_loss=41,
+            packets_sent=35_840)},
 }
 
 
@@ -562,6 +681,15 @@ SNAPSHOT_FLOOD_BW = "200 Kbit"
 SNAPSHOT_TCP_HOSTS = 32
 
 
+def mixed_flood_qdisc() -> dict:
+    """The mixed flood at SNAPSHOT_FLOOD_BW under pifo with wfq and
+    codel: its speculative windows roll back after the qdisc kernels ran
+    on queued packets."""
+    return {**mixed_flood(SNAPSHOT_FLOOD_BW), "qdisc": {
+        "discipline": "pifo", "rank": "wfq", "drop": "codel",
+        "queue_slots": 32}}
+
+
 def nic_bound() -> dict:
     """Config 3's shape at 100 Mbit: a TCP sender's first flights outrun
     its NIC's tokens, so packets queue in the send ring and the pump
@@ -595,6 +723,10 @@ PHASE9_PROFILE_NS = 2_000_000
 # of the script's time)
 PHASE5_STOP_S = 5
 PHASE8_STOP_S = 2
+# config 3's kernels and plain versions are compared to here (s, of 4;
+# a cut, to keep the script in half its time limit): its transfers start
+# at 1 s and take half their micro-steps in their first 0.2 s
+PHASE11_STOP_S = 1.2
 
 # the kernels of each main path
 PHOLD_PATH = ("window_sort", "extract_slots", "phold_forward",
@@ -631,6 +763,21 @@ NEW_PATHS = {
 }
 NEW_MID = {"phold_hot": 5_000_000_000, "phold_local": 5_000_000_000,
            "phold_cpu": 5_000_000_000, "config2_cpu": 2_000_000_000}
+# the device-queue disciplines replace the NIC's send ring: each send
+# that does not go straight to the wire takes qdisc_enqueue (K22), the
+# send pump qdisc_dequeue (K23), its bucket's nic_refill and link_send;
+# the routers' ring_append stays, send_dequeue never runs, and no router
+# queues (codel_dequeue)
+QDISC_PATH = CONFIG2_PATH + ("nic_refill", "link_send", "qdisc_enqueue",
+                             "qdisc_dequeue")
+QDISC_PATHS = {"config2_pifo": CONFIG2_PIFO, "config2_eiffel": CONFIG2_EIFFEL}
+# phase 18's synthetic planes: rows of QDISC_SLOTS at config 2's width
+QDISC_SLOTS = 64
+# the windows phase 18 captures each kernel's busiest call from: at
+# least the first, and on until every kernel of the path ran and a pump
+# popped (a client's pump pops once in ≈28 ms, a 1,052-byte datagram at
+# 300 Kbit, in rounds the outbox stalls shift), at most the second
+QDISC_CAPTURE_WINDOWS = (8, 40)
 # no NIC send ring queues at 1 Gbit (configs 2 to 4), so only the
 # NIC-bound transfer takes the send pump: its dequeue and its link_send
 NIC_PATH = CONFIG3_PATH + ("send_dequeue", "link_send")
@@ -673,6 +820,8 @@ REPLACES = {
     # the matrix form; on the loop path, the loop body's chain
     # (REPLACES_LOOP)
     "cpu_serialize": "shadow_tpu/core/engine.py:1224",
+    "qdisc_enqueue": "shadow_tpu/net/qdisc/pifo.py:178",
+    "qdisc_dequeue": "shadow_tpu/net/qdisc/pifo.py:200",
 }
 REPLACES_LOOP = {"cpu_serialize": "shadow_tpu/core/engine.py:904"}
 
@@ -793,11 +942,11 @@ def work_args(name: str, args) -> tuple:
 
 
 def _flat(xs) -> list:
-    """The tensors of ``xs``, each box tuple flattened, each None left
-    out."""
+    """The tensors of ``xs``, each box tuple and field list flattened,
+    each None left out."""
     out = []
     for x in xs:
-        out.extend(x if isinstance(x, kernels.Boxes) else
+        out.extend(x if isinstance(x, (kernels.Boxes, list, tuple)) else
                    [] if x is None else [x])
     return out
 
@@ -1077,7 +1226,44 @@ def kernel_bound(name: str, args, kw, out):
         # every host's two buckets, router ring head and tail and three
         # flags in, its gate out
         return bound(nbytes(*args) + nbytes(out), 0)
+    if name in ("qdisc_enqueue", "qdisc_dequeue"):
+        return bound(qdisc_bytes(name, args, kw["spec"], out), 0)
     raise ValueError(name)
+
+
+def qdisc_bytes(name: str, args, spec, out) -> int:
+    """The bytes K22 or K23 must move on this call: every cell of the
+    plane the call changes read and written once (a slot: its payload
+    words, dst, rank, seq and enqueue time, and Eiffel's bucket), each
+    host's depth read (PIFO: q_len; Eiffel: its valid flags) and its
+    outputs written; for the hosts with a packet offered (K22) or asked
+    for (K23), the per-host inputs and, for PIFO's K22, the ranks of the
+    queued packets it compares, for Eiffel's K23 the valid flags,
+    buckets and seqs of the row it scans."""
+    fields = dict(zip(spec.names, args[0]))
+    H, Q, P = fields["q_payload"].shape
+    moved = 0
+    for n, before, after in zip(spec.names, args[0], out.fields):
+        diff = before != after
+        cell = before.element_size() * (P if before.dim() == 3 else 1)
+        if before.dim() == 3:
+            diff = diff.any(dim=2)
+        moved += 2 * cell * int(diff.sum())
+    depth = nbytes(fields["q_valid"] if spec.eiffel else fields["q_len"])
+    if name == "qdisc_enqueue":
+        mask, dst, payload, now = args[1:5]
+        n = int(mask.sum())
+        reads = nbytes(mask) + n * (4 * P + 4 + 8 + 4)  # packet, dst, now, cls
+        if not spec.eiffel:
+            queued = torch.where(mask, fields["q_len"], 0)
+            reads += 8 * int(queued.sum())
+        return moved + depth + reads + nbytes(out.ok)
+    now, want = args[1:3]
+    n = int(want.sum())
+    reads = nbytes(want) + 8 * n
+    if spec.eiffel:
+        reads += n * Q * (1 + 8 + 8)
+    return moved + depth + reads + nbytes(out.have, out.payload, out.dst)
 
 
 def window_inputs(card: str):
@@ -1324,6 +1510,10 @@ def activity(name: str, args, out) -> int:
         return int(args[0].sum())  # packets offered, packets arrived
     if name == "nic_gate":
         return int(out.sum())  # extra arrivals granted
+    if name == "qdisc_enqueue":
+        return int(args[1].sum())  # packets offered
+    if name == "qdisc_dequeue":
+        return int(out.have.sum())  # packets handed up
     return int(args[5].sum())  # ring_append, tcp_demux: the mask
 
 
@@ -1670,7 +1860,8 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
             err = max_abs_err([got], [want])
         elif name == "extract_slots":
             err = max_abs_err(flat_extract(got), flat_extract(want))
-        elif name in ("tcp_ack", "tcp_out"):
+        elif name in ("tcp_ack", "tcp_out", "qdisc_enqueue",
+                      "qdisc_dequeue"):
             err = max(max_abs_err(got.fields, want.fields),
                       max_abs_err(got[1:], want[1:]))
         else:
@@ -2181,17 +2372,153 @@ def synthetic_select(H: int, K: int, B: int, O: int, PP: int, G: int,
     return tuple(torch.as_tensor(a, device=device) for a in cols), kw
 
 
+I64_MAX = np.iinfo(np.int64).max
+I64_MIN = np.iinfo(np.int64).min
+QDISC_WEIGHTS = [1, 2.5, 4]
+QDISC_SHAPING = {0: 200_000, 2: 3_000_000}
+# every discipline with every ranker, each discipline with every drop
+# policy and shaping on and off; chip_smoke.py's two paths last
+QDISC_CASES = [("pifo", "fifo", False, "none"), ("pifo", "prio", True, "red"),
+               ("pifo", "wfq", False, "codel"),
+               ("eiffel", "fifo", True, "codel"),
+               ("eiffel", "prio", False, "none"),
+               ("eiffel", "wfq", True, "red"), ("pifo", "wfq", True, "red"),
+               ("eiffel", "wfq", False, "codel")]
+
+
+class _QdiscStack:
+    """What a discipline's ``attach`` reads of the network stack."""
+
+    def __init__(self, H, device, P=12):
+        self.num_hosts, self.payload_words = H, P
+        self.sockets_per_host, self.device = 8, device
+
+
+def qdisc_discipline(disc, rank, shaped, drop, H, Q, device, C=3, B=4,
+                     modules=None):
+    """A discipline built as ``sim.py`` builds one, attached to H hosts;
+    ``modules`` = (ranks, drops, pifo class, eiffel class), the port's
+    by default."""
+    if modules is None:
+        from shadow_tpu_torch.net.qdisc import drops, ranks
+        from shadow_tpu_torch.net.qdisc.eiffel import EiffelDiscipline
+        from shadow_tpu_torch.net.qdisc.pifo import PifoDiscipline
+
+        modules = (ranks, drops, PifoDiscipline, EiffelDiscipline)
+    ranks_m, drops_m, pifo_c, eiffel_c = modules
+    weights = (QDISC_WEIGHTS * C)[:C]
+    shaping = ({c: b for c, b in QDISC_SHAPING.items() if c < C}
+               if shaped else None)
+    kw = dict(queue_slots=Q, drop=drop,
+              ranker=ranks_m.make_ranker(rank, classes=C, weights=weights,
+                                         shaping=shaping),
+              red=(drops_m.RedConfig(Q, 0.25, 0.75, 0.3) if drop == "red"
+                   else None),
+              host_class=np.random.default_rng(5).integers(-1, C, H))
+    d = (eiffel_c(buckets=B, bucket_width=300, **kw) if disc == "eiffel"
+         else pifo_c(**kw))
+    d.attach(_QdiscStack(H, device))
+    return d
+
+
+def synthetic_qdisc_plane(rs, disc: str, now: int, H: int, Q: int, C: int = 3,
+                       B: int = 4, P: int = 12, extreme: bool = False):
+    """A plane in mid-run, {field: numpy array}: a quarter of the rows
+    empty, a quarter full, the rest 1 to Q - 1 deep (pifo: a sorted
+    prefix with ties and stale cells past it; eiffel: valid slots
+    anywhere, buckets around the service bucket), sojourns across CoDel's
+    target, RED's average across its thresholds, drop mode and intervals
+    armed or not. ``extreme``: ranks, virtual times and finish times
+    near the int64 limits (sums past them wrap)."""
+    kind = rs.integers(0, 4, H)
+    n = np.where(kind == 0, 0, np.where(kind == 1, Q, rs.integers(
+        1, max(Q, 2), H)))
+    n = np.minimum(n, Q)
+    pl = np.zeros((H, Q, P), np.int32)
+    pl[..., 0] = np.where(rs.random((H, Q)) < 0.8, 17, 6)
+    pl[..., 3] = rs.integers(0, 1473, (H, Q))
+    pl[..., 4] = rs.integers(-5, 5, (H, Q))
+    pl[..., 10] = rs.integers(-9, 9, (H, Q))
+    pl[..., 11] = rs.integers(-2**31, 2**31 - 1, (H, Q))
+    top = (I64_MAX - 2**40) if extreme else 40_000
+    rank = np.sort(rs.integers(-top if extreme else 0, top, (H, Q)), axis=1)
+    if extreme:
+        rank[:, :Q // 3] = I64_MIN + rs.integers(0, 3, (H, Q // 3))
+        rank[:, Q - Q // 3:] = I64_MAX - rs.integers(0, 3, (H, Q // 3))
+        rank = np.sort(rank, axis=1)
+    if disc == "eiffel":
+        valid = rs.random((H, Q)) < n[:, None] / Q
+        rank = rs.permuted(rank, axis=1)
+    else:
+        valid = np.arange(Q)[None, :] < n[:, None]
+    wire = (pl[..., 3] + np.where(pl[..., 0] == 6, 40, 28)).astype(np.int64)
+    age = np.where(rs.random((H, Q)) < 0.4, rs.integers(0, 9_000_000, (H, Q)),
+                   rs.integers(10_000_000, 400_000_000, (H, Q)))
+    vt = (I64_MAX - rs.integers(0, 2**20, H)) if extreme else rs.integers(
+        0, 20_000, H)
+    fin = (I64_MAX - rs.integers(0, 2**20, (H, C))) if extreme else (
+        rs.integers(0, 40_000, (H, C)))
+    ms = 1_000_000
+    qd = dict(
+        q_payload=pl, q_dst=rs.integers(0, H, (H, Q)).astype(np.int32),
+        q_rank=rank.astype(np.int64),
+        q_seq=np.cumsum(rs.integers(1, 3, (H, Q)), axis=1).astype(np.int64),
+        q_enq_ts=(now - age).astype(np.int64),
+        q_bytes=np.where(valid, wire, 0).sum(axis=1),
+        seq=rs.integers(2 * Q, 3 * Q, H).astype(np.int64),
+        cls=rs.integers(-1, C, H).astype(np.int32),
+        vtime=vt.astype(np.int64), finish=fin.astype(np.int64),
+        shape_next=(now + rs.integers(-50 * ms, 50 * ms, (H, C))).astype(
+            np.int64),
+        drop_mode=rs.random(H) < 0.5,
+        interval_expire=np.where(rs.random(H) < 0.3, 0, now + rs.integers(
+            -200 * ms, 50 * ms, H)).astype(np.int64),
+        next_drop=(now + rs.integers(-100 * ms, 50 * ms, H)).astype(
+            np.int64),
+        drop_count=rs.integers(0, 40, H).astype(np.int32),
+        drop_count_last=rs.integers(0, 40, H).astype(np.int32),
+        red_avg=rs.integers(0, (Q << 8) + 1, H).astype(np.int64),
+        red_count=rs.integers(0, 8, H).astype(np.int64),
+        **{k: rs.integers(0, 100, H).astype(np.int64) for k in (
+            "enqueues", "dequeues", "drops_overflow", "drops_red",
+            "drops_codel", "sojourn_sum", "depth_peak")},
+    )
+    if disc == "eiffel":
+        qd.update(q_valid=valid,
+                  q_bucket=rs.integers(0, B, (H, Q)).astype(np.int64),
+                  cur_bucket=rs.integers(0, B, H).astype(np.int64))
+    else:
+        qd["q_len"] = n.astype(np.int32)
+    return qd
+
+
+def synthetic_qdisc_packets(rs, now: int, H: int, P: int = 12):
+    """(mask, dst, payload, now) of an enqueue: UDP and TCP packets,
+    sockets and priorities of both signs, NEVER where unmasked."""
+    pl = np.zeros((H, P), np.int32)
+    pl[:, 0] = np.where(rs.random(H) < 0.8, 17, 6)
+    pl[:, 3] = rs.integers(0, 1473, H)
+    pl[:, 4] = rs.integers(-5, 5, H)
+    pl[:, 10] = rs.integers(-9, 9, H)
+    mask = rs.random(H) < 0.75
+    return (mask, rs.integers(0, H, H).astype(np.int32), pl,
+            np.where(mask, now, NEVER).astype(np.int64))
+
+
+
 def compiler_view(reports: dict) -> dict:
     """{kernel: {entry function: registers, shared memory bytes, spill
     bytes (stores + loads)}} of the matrix path's extract_slots and
     phold_forward, the micro-step's two kernels, the in-place net-stack
-    kernels, the NIC's admission kernels and the window's two sorts, from
-    nvcc's -Xptxas -v reports."""
+    kernels, the NIC's admission kernels, the window's two sorts, the CPU
+    model and the device-queue disciplines' two kernels, from nvcc's
+    -Xptxas -v reports."""
     view = {}
     for name in ("extract_slots", "phold_forward", "loop_select",
                  "loop_route", "ring_append", "tcp_ack",
                  "tcp_reorder", "tcp_out", "nic_tx", "nic_rx", "nic_gate",
-                 "window_sort", "pool_merge", "cpu_serialize"):
+                 "window_sort", "pool_merge", "cpu_serialize",
+                 "qdisc_enqueue", "qdisc_dequeue"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -2419,6 +2746,24 @@ def counting_tcp(ops, counts: dict) -> kernels.WindowOps:
         return call
     return ops._replace(tcp_ack=counted("tcp_ack"),
                         tcp_out=counted("tcp_out"))
+
+
+def counting_qdisc(ops, counts: dict) -> kernels.WindowOps:
+    """``ops`` with its ``qdisc_enqueue`` and ``qdisc_dequeue`` counting in
+    ``counts``, under their names, the packets each call admits or hands
+    up."""
+    def enqueue(*args, **kw):
+        out = ops.qdisc_enqueue(*args, **kw)
+        counts["qdisc_enqueue"] = (counts.get("qdisc_enqueue", 0)
+                                   + int(out.ok.sum()))
+        return out
+
+    def dequeue(*args, **kw):
+        out = ops.qdisc_dequeue(*args, **kw)
+        counts["qdisc_dequeue"] = (counts.get("qdisc_dequeue", 0)
+                                   + int(out.have.sum()))
+        return out
+    return ops._replace(qdisc_enqueue=enqueue, qdisc_dequeue=dequeue)
 
 
 def rolled_back_attempt(sim, counts: dict, need=()) -> tuple:
@@ -2711,6 +3056,212 @@ def new_phases(card: str):
     return out
 
 
+def qdisc_synthetic(card: str, H: int, dev) -> None:
+    """Phase 18's synthetic planes: K22 and K23 on a full-width plane
+    (``synthetic_qdisc_plane``: random ranks, classes and fill, empty and
+    full rows, ranks and virtual times near the int64 limits) of every
+    case of QDISC_CASES, six steps each from the plain versions' states,
+    each call on clones against its plain version. The flood's own WFQ
+    ranks always insert at a row's tail; only these take PIFO's mid-row
+    insert and Eiffel's wrapped scan."""
+    calls = mid_insert = wrapped = 0
+    for case in QDISC_CASES:
+        for extreme in (False, True):
+            rs = np.random.default_rng(53 + QDISC_CASES.index(case)
+                                       + 100 * extreme)
+            d = qdisc_discipline(*case, H, QDISC_SLOTS, dev)
+            now = 2_000_000_000
+            plane = synthetic_qdisc_plane(rs, case[0], now, H, QDISC_SLOTS,
+                                          extreme=extreme)
+            fields = [torch.as_tensor(plane[n], device=dev)
+                      for n in d.spec.names]
+            for step in range(6):
+                now += int(rs.integers(0, 30_000_000))
+                if step % 3 != 2:
+                    name = "qdisc_enqueue"
+                    args = (fields, *(torch.as_tensor(x, device=dev) for x in
+                                      synthetic_qdisc_packets(rs, now, H)))
+                else:
+                    name = "qdisc_dequeue"
+                    w = rs.random(H) < 0.8
+                    args = (fields, torch.as_tensor(
+                        np.where(w, now, NEVER), device=dev),
+                        torch.as_tensor(w, device=dev))
+                want = getattr(kernels, f"{name}_plain")(*args, spec=d.spec)
+                work = work_args(name, args)
+                got = getattr(kernels, name)(*work, spec=d.spec)
+                torch.cuda.synchronize()
+                check_in_place("phase 18", f"{name} {case}", args, work, got,
+                               want)
+                err = max(max_abs_err(got.fields, want.fields),
+                          max_abs_err(got[1:], want[1:]))
+                if err != 0:
+                    fail(f"phase 18: {name} disagrees with its plain version "
+                         f"on the synthetic plane {case} extreme={extreme}")
+                old = dict(zip(d.spec.names, fields))
+                new = dict(zip(d.spec.names, want.fields))
+                if name == "qdisc_enqueue" and not d.spec.eiffel:
+                    # the new packet's slot holds the host's old seq
+                    pos = (new["q_seq"] == old["seq"][:, None]).to(
+                        torch.int8).argmax(dim=1)
+                    mid_insert += int((want.ok & (
+                        pos < old["q_len"])).sum())
+                if name == "qdisc_dequeue" and d.spec.eiffel:
+                    # the scan passed the last bucket and went on from 0
+                    wrapped += int((want.have & (
+                        new["cur_bucket"] < old["cur_bucket"])).sum())
+                fields = list(want.fields)
+                calls += 1
+    print(f"[{card}] phase 18 synthetic planes: K22 and K23 equal to their "
+          f"plain versions, in place, on {calls} calls over "
+          f"{len(QDISC_CASES)} cases at H={H} Q={QDISC_SLOTS} (and with "
+          f"ranks and virtual times near the int64 limits); PIFO inserts "
+          f"mid-row {mid_insert}, Eiffel scans wrapped {wrapped}",
+          flush=True)
+    if not (mid_insert and wrapped):
+        fail("phase 18: the synthetic planes missed PIFO's mid-row insert "
+             "or Eiffel's wrapped scan")
+
+
+def phase_qdisc(card: str) -> dict:
+    """Phase 18: each qdisc path to QDISC_CUT_S through the kernels and
+    the plain versions, state by state; every kernel of the path on its
+    busiest call over the next windows (QDISC_CAPTURE_WINDOWS) against
+    its plain version,
+    timed beside its bound; one window alone and under the profiler; and
+    the synthetic planes (``qdisc_synthetic``). Returns the calls'
+    results by path."""
+    results = {}
+    until = int(QDISC_CUT_S * 1_000_000_000)
+    for name, cfg in QDISC_PATHS.items():
+        cut = [flood_run(card, ops, f"phase 18 {name} to {until} ({label})",
+                         cfg, until)
+               for ops, label in ((kernels.KERNEL_OPS, "kernels"),
+                                  (kernels.PLAIN_OPS, "plain versions"))]
+        (ks, kw, kc, kch, kl), (ps, pw, pc, pch, pl) = cut
+        if any(pl.values()):
+            fail(f"phase 18 {name}: a kernel launched in the plain run: {pl}")
+        for k in ("qdisc_enqueue", "qdisc_dequeue"):
+            if kl[k] == 0:
+                fail(f"phase 18 {name}: {k} never launched")
+        if (pw, pc, pch) != (kw, kc, kch):
+            fail(f"phase 18 {name}: the plain run's windows, counters or "
+                 f"chain differ")
+        diff = same_state(ks.state, ps.state)
+        if diff:
+            fail(f"phase 18 {name}: final state differs from the kernels' "
+                 f"in {diff}")
+        qd = ks.state.subs["qdisc"]
+        print(f"[{card}] phase 18 {name} plain run equal to the kernels' "
+              f"run to {until}: windows, counters, chain, "
+              f"{len(interop.state_paths(ps.state))} state arrays; qdisc "
+              + json.dumps({k: int(getattr(qd, k).sum()) for k in (
+                  "enqueues", "dequeues", "drops_overflow", "drops_red",
+                  "drops_codel")}) + f" depth_peak_max="
+              f"{int(qd.depth_peak.max())}", flush=True)
+        del ps, cut
+        best: dict = {}
+        ks.ops = capture_ops(best, QDISC_PATH)
+        least, most = QDISC_CAPTURE_WINDOWS
+        for n in range(1, most + 1):
+            step_windows(ks, 1)
+            if n >= least and all(k in best for k in QDISC_PATH) and (
+                    best["qdisc_dequeue"][0] > 0):
+                break
+        print(f"[{card}] phase 18 {name} inputs: the busiest call of each "
+              f"kernel over {n} windows from {until}, H={ks.num_hosts}: "
+              + json.dumps({k: v[0] for k, v in best.items()}), flush=True)
+        missing = [k for k in QDISC_PATH if k not in best]
+        if missing:
+            fail(f"phase 18 {name}: the windows did not call {missing}")
+        if best["qdisc_dequeue"][0] == 0:
+            fail(f"phase 18 {name}: no qdisc_dequeue call popped a packet")
+        results[name] = compare_calls(card, f"phase 18 {name}", best)
+        ks.ops = kernels.KERNEL_OPS
+        profile_windows(card, ks, f"phase 18 the {name} window", ks.runahead)
+        H, dev = ks.num_hosts, ks.device
+        del ks, best
+    qdisc_synthetic(card, H, dev)
+    return results
+
+
+def qdisc_phases(card: str) -> dict:
+    """Phases 19-20: each qdisc path from t = 0 to the stop in one
+    ``run()`` through the kernels against the JAX package's values
+    (``REF_QDISC``), every kernel of QDISC_PATH launched and no other;
+    the shaped pifo cut through the kernels against its JAX values and
+    through the plain versions, state by state; and a rolled-back
+    attempt of the mixed flood under pifo that leaves its base as it
+    was. Returns the whole runs' launches by path."""
+    out = {}
+    for name, cfg in QDISC_PATHS.items():
+        sim, windows, c, chain, launches = flood_run(
+            card, kernels.KERNEL_OPS, f"phase 19 {name} through the kernels",
+            cfg)
+        check_qdisc_ref(f"phase 19 {name}", sim, windows, c, chain,
+                        REF_QDISC[name])
+        for k in kernels.KERNELS:
+            if (k.name in QDISC_PATH) != (launches[k.name] > 0):
+                fail(f"phase 19 {name}: {k.name} launched "
+                     f"{launches[k.name]} times")
+        win = sim.obs_snapshot()["win"]
+        if win["loop_dispatches"] != windows or win["matrix_dispatches"]:
+            fail(f"phase 19 {name}: not every window took the loop path: "
+                 f"{win}")
+        out[name] = launches
+        qd = sim.state.subs["qdisc"]
+        print(f"[{card}] phase 19 {name} equal to the JAX package's "
+              f"windows, counters, chain and qdisc plane; qdisc "
+              + json.dumps({k: int(getattr(qd, k).sum()) for k in (
+                  "enqueues", "dequeues", "drops_overflow", "drops_red",
+                  "drops_codel", "sojourn_sum")})
+              + f" depth_peak_max={int(qd.depth_peak.max())}", flush=True)
+        del sim
+    name = "config2_pifo_shaped"
+    cut = [flood_run(card, ops, f"phase 20 {name} ({label})",
+                     CONFIG2_PIFO_SHAPED)
+           for ops, label in ((kernels.KERNEL_OPS, "kernels"),
+                              (kernels.PLAIN_OPS, "plain versions"))]
+    (ks, kw, kc, kch, _), (ps, pw, pc, pch, pl) = cut
+    check_qdisc_ref(f"phase 20 {name}", ks, kw, kc, kch, REF_QDISC[name])
+    if any(pl.values()):
+        fail(f"phase 20 {name}: a kernel launched in the plain run: {pl}")
+    diff = same_state(ks.state, ps.state)
+    if (pw, pc, pch) != (kw, kc, kch) or diff:
+        fail(f"phase 20 {name}: the plain run differs from the kernels' "
+             f"({diff})")
+    shaped = int((ks.state.subs["qdisc"].shape_next != 0).sum())
+    print(f"[{card}] phase 20 {name} equal to the JAX package's values "
+          f"and the plain run to the kernels' run, state by state; "
+          f"{shaped} shaped classes' eligibility times advanced",
+          flush=True)
+    if shaped == 0:
+        fail("phase 20: no shaped class advanced its eligibility time")
+    del cut, ks, ps
+    sim = build_simulation(mixed_flood_qdisc())
+    counts: dict = {}
+    sim.ops = counting_qdisc(sim.ops, counts)
+    n, ws, viol, nt, seen = rolled_back_attempt(
+        sim, counts, ("qdisc_enqueue", "qdisc_dequeue"))
+    print(f"[{card}] phase 20 snapshot, the mixed flood at "
+          f"{SNAPSHOT_FLOOD_BW} under pifo: with {n} windows committed, the "
+          f"attempt from t={ws} rolled back at t={viol}, having counted "
+          f"{json.dumps(seen)} (packets admitted, handed up); its base's "
+          f"{nt} tensors are the same objects, versions and values",
+          flush=True)
+    return out
+
+
+def check_qdisc_ref(phase: str, sim, windows, c, chain, ref) -> None:
+    digest = qdisc_digest(interop.state_to_numpy(sim.state))
+    for what, got, want in (("windows", windows, ref["windows"]),
+                            ("counters", c, ref["counters"]),
+                            ("audit_chain", chain, ref["audit_chain"]),
+                            ("qdisc_digest", digest, ref["qdisc_digest"])):
+        if got != want:
+            fail(f"{phase}: {what} = {got}, want {want}")
+
+
 def same_state(a, b) -> list:
     """The paths where two states' arrays differ (or the path sets)."""
     na, nb = interop.state_to_numpy(a), interop.state_to_numpy(b)
@@ -2864,19 +3415,26 @@ def main() -> None:
     print(f"[{card}] phase 10 config 3 equal to the JAX package's counters, "
           f"TCP counters and chain; every transfer complete", flush=True)
 
+    del sim
+    cut = {**CONFIG3, "general": {**CONFIG3["general"],
+                                  "stop_time": PHASE11_STOP_S}}
+    ksim, kwindows, kc, ktc, kchain, _ = tcp_run(
+        card, cut, kernels.KERNEL_OPS,
+        f"phase 11 config 3 to {PHASE11_STOP_S} s through the kernels")
     psim, pwindows, pc, ptc, pchain, plaunches = tcp_run(
-        card, CONFIG3, kernels.PLAIN_OPS, "phase 11 config 3, plain versions")
+        card, cut, kernels.PLAIN_OPS,
+        f"phase 11 config 3 to {PHASE11_STOP_S} s, plain versions")
     if any(plaunches.values()):
         fail(f"phase 11: a kernel launched in the plain run: {plaunches}")
-    if (pwindows, pc, ptc, pchain) != (windows3, c3, tc3, chain3):
+    if (pwindows, pc, ptc, pchain) != (kwindows, kc, ktc, kchain):
         fail("phase 11: the plain run's windows, counters or chain differ")
-    diff = same_state(sim.state, psim.state)
+    diff = same_state(ksim.state, psim.state)
     if diff:
         fail(f"phase 11: final state differs from the kernels' in {diff}")
-    print(f"[{card}] phase 11 plain run equal to the kernels' run: counters, "
-          f"chain, {len(interop.state_paths(sim.state))} state arrays",
-          flush=True)
-    del sim, psim
+    print(f"[{card}] phase 11 plain run equal to the kernels' run to "
+          f"{PHASE11_STOP_S} s: counters, chain, "
+          f"{len(interop.state_paths(ksim.state))} state arrays", flush=True)
+    del ksim, psim
 
     t_opt = time.perf_counter()
     opt_results, launches4, launchesm, launches_nic = optimistic_phases(card)
@@ -2884,6 +3442,10 @@ def main() -> None:
     t_new = time.perf_counter()
     new_results = phase_new_kernels(card)
     new_launches = new_phases(card)
+
+    t_qdisc = time.perf_counter()
+    qdisc_results = phase_qdisc(card)
+    qdisc_launches = qdisc_phases(card)
 
     # one entry for each kernel on each main path: its launches in that
     # path's run, and its times and bound on that path's inputs
@@ -2901,6 +3463,15 @@ def main() -> None:
                  f"on {path}, whose hosts have no CPU cost")
     paths += tuple((name, NEW_PATHS[name][1], new_launches[name],
                     new_results[name]) for name in NEW_PATHS)
+    # no earlier path has a device-queue discipline: K22 and K23 launch
+    # nothing there
+    for path, _, counts, _ in paths:
+        for k in ("qdisc_enqueue", "qdisc_dequeue"):
+            if counts[k]:
+                fail(f"{k} launched {counts[k]} times on {path}, which has "
+                     f"no pifo or eiffel qdisc")
+    paths += tuple((name, QDISC_PATH, qdisc_launches[name],
+                    qdisc_results[name]) for name in QDISC_PATHS)
     line = {"kernels": [
         {
             "name": k.name,
@@ -2924,7 +3495,8 @@ def main() -> None:
     t_end = time.perf_counter()
     print(f"[{card}] phases 9-11 wall_s={t_opt - t_tcp:.3f}; phases 12-14 "
           f"wall_s={t_new - t_opt:.3f}; phases 15-17 "
-          f"wall_s={t_end - t_new:.3f}; whole script "
+          f"wall_s={t_qdisc - t_new:.3f}; phases 18-20 "
+          f"wall_s={t_end - t_qdisc:.3f}; whole script "
           f"wall_s={t_end - t_start:.3f}", flush=True)
     print(json.dumps(line))
     print(card)

@@ -14,10 +14,12 @@ in int64 with values in [0, 2**32); every update masks with 0xFFFFFFFF so
 they wrap exactly as the uint32 originals do.
 
 The engine replaces fields with new tensors window by window, with one
-exception: on the card, ``ring_append`` and the TCP kernels ``tcp_ack``,
-``tcp_reorder`` and ``tcp_out`` write in place the fields that a
-sub-state class lists in its ``IN_PLACE`` (the NIC's and the router's
-ring planes, 26 fields of the TCP table). ``SimState.snapshot()``
+exception: on the card, ``ring_append``, the TCP kernels ``tcp_ack``,
+``tcp_reorder`` and ``tcp_out`` and the qdisc kernels ``qdisc_enqueue``
+and ``qdisc_dequeue`` write in place the fields that a sub-state class
+lists in its ``IN_PLACE`` (the NIC's and the router's ring planes, 26
+fields of the TCP table, every field of a pifo or eiffel plane but its
+class table). ``SimState.snapshot()``
 clones those fields, so stepping a snapshot leaves the original as it was.
 """
 
@@ -197,8 +199,9 @@ class SimState:
         the in-place kernels write: each field a sub-state class lists in
         its ``IN_PLACE`` is cloned, every other tensor is shared. The
         matrix step and the app handlers assign fields on the containers
-        they are given, and on the card ``ring_append`` and the TCP
-        kernels write the ``IN_PLACE`` fields; done on the copy, none
+        they are given, and on the card ``ring_append``, the TCP kernels
+        and the qdisc kernels write the ``IN_PLACE`` fields; done on the
+        copy, none
         touches this state. The optimistic driver steps each
         attempt on a snapshot of its rollback point."""
         return _snap(self)

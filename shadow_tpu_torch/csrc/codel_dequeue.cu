@@ -9,10 +9,9 @@
 // (P > 12), which the port does not run, so the trail registers are
 // untouched.
 //
-// The control law is next = ts + round(INTERVAL / sqrt(max(count, 1))) in
-// float64 with ties to even (jnp.round): an IEEE square root and divide
-// (__dsqrt_rn, __ddiv_rn) and rint, never a fast approximation. Every
-// time comparison and sum that involves `now` is taken only on a lane
+// The control law (codel_common.cuh, shared with K23 qdisc_dequeue's
+// CoDel hook) is next = ts + round(INTERVAL / sqrt(max(count, 1))) in
+// float64 with ties to even. Every time comparison and sum that involves `now` is taken only on a lane
 // that has a packet in hand: lanes without an event carry now = NEVER, and
 // now + INTERVAL would overflow there.
 //
@@ -20,19 +19,17 @@
 // three ring slots a host, and writes the state and one packet a host.
 // Design: one thread per host; the ring is read in place at head % Q.
 
-#include <cuda_runtime.h>
+#include "codel_common.cuh"
 
 namespace {
 
-constexpr long long kTarget = 10000000LL;
-constexpr long long kInterval = 100000000LL;
-constexpr int kMtu = 1500;
-constexpr int kWProto = 0, kWLen = 3, kProtoTcp = 6;
-
-__device__ __forceinline__ long long control_law(int count, long long ts) {
-  const double c = (double)(count > 1 ? count : 1);
-  return ts + (long long)rint(__ddiv_rn((double)kInterval, __dsqrt_rn(c)));
-}
+using codel::control_law;
+using codel::kInterval;
+using codel::kMtu;
+using codel::kProtoTcp;
+using codel::kTarget;
+using codel::kWLen;
+using codel::kWProto;
 
 struct Args {
   const int* q_payload;

@@ -5,7 +5,8 @@ with paths like ``pool.time``, ``host.rng_counter``,
 ``counters.events_committed``, ``obs.host_digest``, ``rng_keys``,
 ``xmit_min`` (the speculation-violation signal),
 ``subs.phold.received`` (an app's dict sub-state) and ``subs.nic.tx_rem``
-(a network sub-state: ``nic``, ``router``, ``udp``, ``tcp``);
+(a network sub-state: ``nic``, ``router``, ``udp``, ``tcp``, and
+``qdisc`` under the JAX package's dict keys, e.g. ``subs.qdisc.q_rank``);
 ``state_from_numpy`` builds a ``SimState`` from such a dict on a device.
 The JAX package's state has the same field names, so a test flattens it
 by the same paths and the two dicts compare key by key. The uint32
@@ -28,14 +29,18 @@ from shadow_tpu_torch.core.state import (
     SimState,
 )
 from shadow_tpu_torch.net import codel, nic, tcp, udp
+from shadow_tpu_torch.net import qdisc
+from shadow_tpu_torch.net.qdisc import pifo
 from shadow_tpu_torch.obs.counters import ObsBlock
 
 UINT32_PATHS = ("host.rng_counter", "rng_keys")
 _GROUPS = (("pool", EventPool), ("host", HostState),
            ("counters", Counters), ("obs", ObsBlock))
-# sub-states held as dataclasses, by sub name; every other sub is a dict
+# the constructors of the sub-states held as dataclasses, by sub name;
+# every other sub is a dict (the qdisc plane's class follows its fields)
 SUB_CLASSES = {nic.SUB: nic.NicState, codel.SUB: codel.RouterState,
-               udp.SUB: udp.UdpState, tcp.SUB: tcp.TcpState}
+               udp.SUB: udp.UdpState, tcp.SUB: tcp.TcpState,
+               qdisc.SUB: pifo.make_state}
 
 
 def state_paths(state: SimState) -> list[str]:

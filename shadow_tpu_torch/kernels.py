@@ -1,7 +1,7 @@
 """The window step's hand-written CUDA kernels, their plain PyTorch
 versions, and the build and ctypes binding.
 
-Twenty-one kernels carry the window step on the card (sources under
+Twenty-three kernels carry the window step on the card (sources under
 ``csrc/``, one shared library each). Every window of both paths begins
 and ends with two radix sorts:
 
@@ -90,13 +90,25 @@ allocation:
 * ``nic_gate`` (K18): ``NetStack.bulk_gate`` — both refills to the window
   start, the budgets and the gate.
 
+The device-queue disciplines (``qdisc: pifo`` or ``eiffel``) run two
+more in place of the NIC's send ring:
+
+* ``qdisc_enqueue`` (K22): ``DeviceQueueDiscipline.enqueue`` of
+  ``shadow_tpu/net/qdisc/pifo.py`` — admission, RED, the rank (fifo,
+  prio or wfq, and shaping) and the insert (PIFO's compare-and-place and
+  row shift, Eiffel's first free slot and bucket).
+* ``qdisc_dequeue`` (K23): ``DeviceQueueDiscipline.dequeue`` — the pop
+  (PIFO's slot 0 and row shift, Eiffel's circular bucket scan) under no
+  hook or the CoDel hook, whose control law it shares with K6.
+
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no fallback from one to the
-other. Five kernels write into tensors they are given: ``loop_route``
-the micro-step's boxes; ``ring_append``, ``tcp_ack``, ``tcp_reorder``
-and ``tcp_out`` the state fields their sub-state classes list in
-``IN_PLACE`` (``SimState.snapshot()`` clones those); each ``Kernel``'s
-``writes`` says which arguments. The plain versions work out of place.
+other. Seven kernels write into tensors they are given: ``loop_route``
+the micro-step's boxes; ``ring_append``, ``tcp_ack``, ``tcp_reorder``,
+``tcp_out``, ``qdisc_enqueue`` and ``qdisc_dequeue`` the state fields
+their sub-state classes list in ``IN_PLACE`` (``SimState.snapshot()``
+clones those); each ``Kernel``'s ``writes`` says which arguments. The
+plain versions work out of place.
 A wrapper adds one to its kernel's ``launches`` where it launches the
 kernel and nowhere else.
 
@@ -192,6 +204,13 @@ AUDIT_COMMIT = Kernel(
      _I, _I, _P),
 )
 CPU_SERIALIZE = Kernel("cpu_serialize", (_P, _P, _P, _P, _I, _I, _I, _P))
+# the device-queue disciplines write their sub-state's fields in place
+# (argument 0, a list of tensors); their arguments come packed as
+# extract_slots' do (_PACK is set beside their wrappers)
+QDISC_ENQUEUE = Kernel("qdisc_enqueue", (ctypes.c_char_p, _P),
+                       writes={0: "fields"})
+QDISC_DEQUEUE = Kernel("qdisc_dequeue", (ctypes.c_char_p, _P),
+                       writes={0: "fields"})
 LOOP_SELECT = Kernel(
     "loop_select",
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
@@ -265,7 +284,7 @@ KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
            LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
            TCP_REORDER, TCP_OUT, SPEC_CHECK, NIC_REFILL, SEND_DEQUEUE,
            LINK_SEND, NIC_TX, NIC_RX, NIC_GATE, WINDOW_SORT, POOL_MERGE,
-           CPU_SERIALIZE)
+           CPU_SERIALIZE, QDISC_ENQUEUE, QDISC_DEQUEUE)
 
 
 def reset_launches() -> None:
@@ -2864,6 +2883,186 @@ def nic_gate(rx_rem, rx_tick, rx_refill, rx_cap, tx_rem, tx_tick, tx_refill,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K22 qdisc_enqueue, K23 qdisc_dequeue
+# ---------------------------------------------------------------------------
+
+# the fields of the device-queue disciplines' sub-state, in the order of
+# the pointers the two C entries take (the JAX package's dict keys): the
+# common ones, then pifo's q_len, then eiffel's q_valid, q_bucket and
+# cur_bucket; a discipline's state has the common ones and its own
+QDISC_FIELDS = (
+    "q_payload", "q_dst", "q_rank", "q_seq", "q_enq_ts", "q_bytes", "seq",
+    "cls", "vtime", "finish", "shape_next", "drop_mode", "interval_expire",
+    "next_drop", "drop_count", "drop_count_last", "red_avg", "red_count",
+    "enqueues", "dequeues", "drops_overflow", "drops_red", "drops_codel",
+    "sojourn_sum", "depth_peak", "q_len", "q_valid", "q_bucket",
+    "cur_bucket")
+_QDISC_DTYPES = dict.fromkeys(QDISC_FIELDS, torch.int64) | {
+    "q_payload": torch.int32, "q_dst": torch.int32, "cls": torch.int32,
+    "drop_mode": torch.bool, "drop_count": torch.int32,
+    "drop_count_last": torch.int32, "q_len": torch.int32,
+    "q_valid": torch.bool}
+_RANKS = ("fifo", "prio", "wfq")
+_DROPS = ("none", "red", "codel")
+
+
+@dataclass(frozen=True, eq=False)
+class QdiscSpec:
+    """A device-queue discipline's build-time configuration, which both
+    kernels and their plain versions take: the sub-state's field
+    ``names``; pifo or ``eiffel``; the ranker (``rank``, ``classes``,
+    the [C] int64 tables ``inv_w`` and ``ns_per_byte`` on the state's
+    device, ``shaped``); the drop policy (``drop``, and ``red``, a
+    ``net.qdisc.drops.RedConfig`` where RED runs); Eiffel's ``buckets``
+    and ``bucket_width``."""
+
+    names: tuple
+    eiffel: bool
+    rank: str
+    classes: int
+    inv_w: torch.Tensor
+    ns_per_byte: torch.Tensor
+    shaped: bool
+    drop: str
+    red: object = None
+    buckets: int = 0
+    bucket_width: int = 1
+
+
+class QdiscEnqueueOut(NamedTuple):
+    """The sub-state after one enqueue, its fields in ``spec.names``
+    order (on the card the tensors it was given, written in place), and
+    ``ok``: the packets admitted."""
+
+    fields: tuple
+    ok: torch.Tensor  # [H] bool
+
+
+class QdiscDequeueOut(NamedTuple):
+    """The sub-state after one dequeue (on the card written in place)
+    and the packet handed up: ``have`` marks hosts that got one;
+    ``payload`` and ``dst`` are the slot the last pop read elsewhere."""
+
+    fields: tuple
+    have: torch.Tensor  # [H] bool
+    payload: torch.Tensor  # [H, P] int32
+    dst: torch.Tensor  # [H] int32
+
+
+def qdisc_enqueue_plain(fields, mask, dst, payload, now, *,
+                        spec: QdiscSpec) -> QdiscEnqueueOut:
+    """Plain version: the JAX package's ``DeviceQueueDiscipline.enqueue``
+    (``net/qdisc/pifo.py:enqueue_plain``)."""
+    from shadow_tpu_torch.net.qdisc import pifo
+
+    return pifo.enqueue_plain(fields, mask, dst, payload, now, spec)
+
+
+def qdisc_dequeue_plain(fields, now, want, *,
+                        spec: QdiscSpec) -> QdiscDequeueOut:
+    """Plain version: the JAX package's ``DeviceQueueDiscipline.dequeue``
+    (``net/qdisc/pifo.py:dequeue_plain``)."""
+    from shadow_tpu_torch.net.qdisc import pifo
+
+    return pifo.dequeue_plain(fields, now, want, spec)
+
+
+def _qdisc_fields(fields, spec: QdiscSpec, H: int):
+    """(Q, P, C, the pointer of every field of QDISC_FIELDS or 0) of a
+    sub-state on the card; raises on a field of the wrong type, shape or
+    layout (the kernels write every one but cls in place)."""
+    if len(fields) != len(spec.names):
+        raise ValueError(f"qdisc: {len(fields)} fields for "
+                         f"{len(spec.names)} names")
+    by = dict(zip(spec.names, fields))
+    H_, Q, P = by["q_payload"].shape
+    C = by["finish"].shape[1] if by["finish"].dim() == 2 else -1
+    if H_ != H or P > W_TRAIL:
+        raise ValueError(f"qdisc: q_payload {tuple(by['q_payload'].shape)} "
+                         f"for {H} hosts (packet trails, P > 12, are not "
+                         f"ported)")
+    if C != spec.classes or spec.inv_w.shape != (C,) or (
+            spec.ns_per_byte.shape != (C,)):
+        raise ValueError("qdisc: the class tables do not match finish")
+    shapes = {"q_payload": (H, Q, P), "finish": (H, C),
+              "shape_next": (H, C)}
+    ptrs = []
+    for name in QDISC_FIELDS:
+        t = by.get(name)
+        if t is None:
+            ptrs.append(0)
+            continue
+        plane = name.startswith("q_") and name not in ("q_bytes", "q_len")
+        shape = shapes.get(name, (H, Q) if plane else (H,))
+        ptrs.append(_check(t, _QDISC_DTYPES[name], shape, name))
+    return Q, P, C, ptrs
+
+
+_PACK["qdisc_enqueue"] = struct.Struct(f"<{len(QDISC_FIELDS) + 23}q")
+_PACK["qdisc_dequeue"] = struct.Struct(f"<{len(QDISC_FIELDS) + 12}q")
+
+
+def _f64_bits(x: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
+def qdisc_enqueue(fields, mask, dst, payload, now, *,
+                  spec: QdiscSpec) -> QdiscEnqueueOut:
+    """Each masked host's packet (``payload`` [H, P] to ``dst``, at
+    ``now``; ``dst`` and ``now`` may be one value for every host) into
+    its discipline's queue: admission, RED, the rank and the insert (see
+    ``qdisc_enqueue_plain``).
+
+    On the card the kernel writes the sub-state's tensors (``fields``,
+    in ``spec.names`` order) in place and returns those very tensors;
+    the discipline's state class lists them in ``IN_PLACE``, which
+    ``SimState.snapshot()`` clones. To compare the kernel with its plain
+    version, hand the kernel clones."""
+    if not _on_card(*fields, mask, dst, payload, now, spec.inv_w,
+                    spec.ns_per_byte):
+        return qdisc_enqueue_plain(fields, mask, dst, payload, now,
+                                   spec=spec)
+    H = mask.shape[0]
+    Q, P, C, ptrs = _qdisc_fields(fields, spec, H)
+    red = spec.red
+    ok = torch.empty(H, dtype=torch.bool, device=mask.device)
+    _launch(QDISC_ENQUEUE, _PACK["qdisc_enqueue"].pack(
+        *ptrs, _check(mask, torch.bool, (H,), "mask"),
+        *_per_host(dst, H, torch.int32, "dst"), *_payload(payload, H),
+        *_per_host(now, H, torch.int64, "now"),
+        *_ptrs(torch.int64, spec.inv_w, spec.ns_per_byte), ok.data_ptr(),
+        H, Q, P, C, int(spec.eiffel), _RANKS.index(spec.rank),
+        int(spec.shaped), _DROPS.index(spec.drop), spec.buckets,
+        spec.bucket_width, 0 if red is None else red.min_fp,
+        0 if red is None else red.max_fp,
+        _f64_bits(0.0 if red is None else red.scale)), _stream(mask))
+    return QdiscEnqueueOut(tuple(fields), ok)
+
+
+def qdisc_dequeue(fields, now, want, *, spec: QdiscSpec) -> QdiscDequeueOut:
+    """One packet from each wanting host's discipline queue, under the
+    CoDel hook where ``spec.drop`` is codel (see ``qdisc_dequeue_plain``);
+    ``now`` may be one value for every host. On the card the kernel
+    writes ``fields`` in place, as ``qdisc_enqueue``'s does."""
+    if not _on_card(*fields, now, want):
+        return qdisc_dequeue_plain(fields, now, want, spec=spec)
+    H = want.shape[0]
+    Q, P, _, ptrs = _qdisc_fields(fields, spec, H)
+    dev = want.device
+    out = QdiscDequeueOut(
+        tuple(fields), torch.empty(H, dtype=torch.bool, device=dev),
+        torch.empty((H, P), dtype=torch.int32, device=dev),
+        torch.empty(H, dtype=torch.int32, device=dev))
+    _launch(QDISC_DEQUEUE, _PACK["qdisc_dequeue"].pack(
+        *ptrs, *_per_host(now, H, torch.int64, "now"),
+        _check(want, torch.bool, (H,), "want"), out.have.data_ptr(),
+        out.payload.data_ptr(), out.dst.data_ptr(), H, Q, P,
+        int(spec.eiffel), int(spec.drop == "codel"), spec.buckets),
+        _stream(want))
+    return out
+
+
 class WindowOps(NamedTuple):
     """The window-step functions the engine and the network stack call."""
 
@@ -2888,6 +3087,8 @@ class WindowOps(NamedTuple):
     nic_rx: object
     nic_gate: object
     cpu_serialize: object
+    qdisc_enqueue: object
+    qdisc_dequeue: object
 
 
 # the wrappers: the kernels on the card, the plain versions on the CPU
@@ -2896,7 +3097,7 @@ KERNEL_OPS = WindowOps(window_sort, pool_merge, extract_slots,
                        loop_select, loop_route, codel_dequeue, ring_append,
                        tcp_demux, tcp_ack, tcp_reorder, tcp_out, spec_check,
                        nic_refill, send_dequeue, link_send, nic_tx, nic_rx,
-                       nic_gate, cpu_serialize)
+                       nic_gate, cpu_serialize, qdisc_enqueue, qdisc_dequeue)
 # the plain versions on any device (the on-card comparison run)
 PLAIN_OPS = WindowOps(window_sort_plain, pool_merge_plain,
                       extract_slots_plain, phold_forward_plain,
@@ -2905,4 +3106,5 @@ PLAIN_OPS = WindowOps(window_sort_plain, pool_merge_plain,
                       tcp_demux_plain, tcp_ack_plain, tcp_reorder_plain,
                       tcp_out_plain, spec_check_plain, nic_refill_plain,
                       send_dequeue_plain, link_send_plain, nic_tx_plain,
-                      nic_rx_plain, nic_gate_plain, cpu_serialize_plain)
+                      nic_rx_plain, nic_gate_plain, cpu_serialize_plain,
+                      qdisc_enqueue_plain, qdisc_dequeue_plain)

@@ -10,9 +10,13 @@ discipline through
 
 ``fifo`` and ``roundrobin`` wrap the NIC's send ring; the fifo dequeue
 is the kernel ``send_dequeue``, the round-robin one PyTorch operations
-(``ROADMAP.md``, device function B10). The device-queue
-disciplines ``pifo`` and ``eiffel`` are not ported yet (``ROADMAP.md``,
-device function B9) and raise.
+(``ROADMAP.md``, device function B10). The device-queue disciplines
+``pifo`` (``pifo.py``) and ``eiffel`` (``eiffel.py``) own a
+``subs["qdisc"]`` plane of ``[H, Q]`` queues with rank functions
+(``ranks.py``) and drop policies (``drops.py``); their enqueue and
+dequeue are the kernels ``qdisc_enqueue`` and ``qdisc_dequeue``. They
+carry configuration and are built by ``sim.py`` from the ``qdisc:``
+section.
 """
 
 from __future__ import annotations
@@ -98,15 +102,10 @@ class RoundRobinDiscipline(Discipline):
 
 
 def make_discipline(qdisc: str) -> Discipline:
-    """The discipline for an ``experimental.interface_qdisc`` string."""
+    """The discipline for an ``experimental.interface_qdisc`` string;
+    pifo and eiffel carry configuration and are built by ``sim.py``."""
     if qdisc == "fifo":
         return FifoDiscipline()
     if qdisc == "roundrobin":
         return RoundRobinDiscipline()
-    if qdisc in ("pifo", "eiffel"):
-        from shadow_tpu_torch.sim import BuildError
-
-        raise BuildError(
-            f"the {qdisc} qdisc is not ported to shadow_tpu_torch yet "
-            f"(ROADMAP.md queue B, device function B9)")
     raise ValueError(f"unknown qdisc {qdisc!r}")

@@ -73,6 +73,7 @@ class NetStack:
             router_queue_slots = 1
         self.sockets_per_host = sockets_per_host
         self.num_hosts = num_hosts
+        self.device = device
         self.disc.attach(self)
         self._init_nic = nic.init(bw_up_bits, bw_down_bits, nic_queue_slots,
                                   payload_words=payload_words, device=device)

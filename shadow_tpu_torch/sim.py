@@ -49,15 +49,45 @@ def _refuse_unported(cfg: Config) -> None:
                              f"(ROADMAP.md queue {item})")
 
 
-def _qdisc_discipline(cfg: Config):
+def _qdisc_discipline(cfg: Config, H: int):
     """The egress discipline of the ``qdisc:`` section (or the legacy
-    ``experimental.interface_qdisc`` string): fifo and roundrobin; pifo
-    and eiffel raise."""
+    ``experimental.interface_qdisc`` string); for pifo and eiffel the
+    section's ranker, RED configuration and ``overrides`` host-prefix
+    class table (``shadow_tpu/sim.py:_qdisc_discipline``)."""
     from shadow_tpu_torch.net import qdisc as qdisc_mod
 
-    q = cfg.qdisc.discipline
-    eff = q if q != "fifo" else cfg.experimental.interface_qdisc
-    return qdisc_mod.make_discipline(eff)
+    qopt = cfg.qdisc
+    # an explicit section wins; fifo (the default) defers to the legacy
+    # string
+    eff = (qopt.discipline if qopt.discipline != "fifo"
+           else cfg.experimental.interface_qdisc)
+    if eff not in ("pifo", "eiffel"):
+        return qdisc_mod.make_discipline(eff)
+
+    from shadow_tpu_torch.net.qdisc import drops, ranks
+    from shadow_tpu_torch.net.qdisc.eiffel import EiffelDiscipline
+    from shadow_tpu_torch.net.qdisc.pifo import PifoDiscipline
+
+    ranker = ranks.make_ranker(qopt.rank, classes=qopt.classes,
+                               weights=qopt.weights, shaping=qopt.shaping)
+    red = (drops.RedConfig(qopt.queue_slots, qopt.red_min_frac,
+                           qopt.red_max_frac, qopt.red_max_p)
+           if qopt.drop == "red" else None)
+    host_class = None
+    if qopt.overrides:
+        # host names are expanded and sorted by the config loader, so a
+        # prefix pins every replica of a host block
+        host_class = np.full(H, -1, dtype=np.int32)
+        for i, h in enumerate(cfg.hosts):
+            for prefix, c in qopt.overrides.items():
+                if h.name.startswith(prefix):
+                    host_class[i] = c
+    kw = dict(queue_slots=qopt.queue_slots, ranker=ranker, drop=qopt.drop,
+              red=red, host_class=host_class)
+    if eff == "eiffel":
+        return EiffelDiscipline(buckets=qopt.buckets,
+                                bucket_width=qopt.bucket_width, **kw)
+    return PifoDiscipline(**kw)
 
 
 def build_simulation(source, device=None) -> Simulation:
@@ -225,7 +255,7 @@ def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
         router_queue_slots=x.router_queue_slots,
         router_variant=x.router_queue_variant,
         with_tcp=name == "tcp_bulk",
-        discipline=_qdisc_discipline(cfg),
+        discipline=_qdisc_discipline(cfg, H),
         payload_words=12,
         device=dev,
     )

@@ -48,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core import engine
 from shadow_tpu_torch.core.simtime import NEVER
@@ -1418,3 +1419,116 @@ def test_rolled_back_tcp_attempt_keeps_its_base(card):
         sim, counts, ("tcp_ack", "tcp_out"))
     assert viol < NEVER and seen["tcp_ack"] > 0 and seen["tcp_out"] > 0
     assert kernels.TCP_ACK.launches > n[0] and kernels.TCP_OUT.launches > n[1]
+
+
+# ---------------------------------------------------------------------------
+# the device-queue disciplines' kernels
+# ---------------------------------------------------------------------------
+
+def qdisc_steps(rs, d, plane: dict, now: int, steps: int, check):
+    """Enqueues and dequeues (two of three steps enqueue) from ``plane``
+    through ``d``'s plain versions; ``check(kind, fields, args, want)``
+    sees each call's inputs (``fields`` as they were before it) and the
+    plain version's result. Returns the branches the steps took."""
+    dev = d.spec.inv_w.device
+    fields = [torch.as_tensor(plane[n], device=dev) for n in d.spec.names]
+    seen = set()
+    for step in range(steps):
+        now += int(rs.integers(0, 30_000_000))
+        if step % 3 != 2:
+            args = [torch.as_tensor(x, device=dev)
+                    for x in chip_smoke.synthetic_qdisc_packets(
+                        rs, now, d.num_hosts)]
+            want = kernels.qdisc_enqueue_plain(fields, *args, spec=d.spec)
+            check("enqueue", fields, args, want)
+            seen.add("enqueued" if bool(want.ok.any()) else "refused")
+        else:
+            w = rs.random(d.num_hosts) < 0.8
+            args = [torch.as_tensor(np.where(w, now, NEVER), device=dev),
+                    torch.as_tensor(w, device=dev)]
+            want = kernels.qdisc_dequeue_plain(fields, *args, spec=d.spec)
+            check("dequeue", fields, args, want)
+            seen.add("dequeued" if bool(want.have.any()) else "idle")
+        fields = list(want.fields)
+    return seen
+
+
+def check_qdisc_kernel(kind, fields, args, want, spec):
+    """The kernel on clones of ``fields``: one launch, the clones
+    returned, written as the plain version writes them and every other
+    cell left as it was, and its other outputs equal."""
+    k = kernels.QDISC_ENQUEUE if kind == "enqueue" else kernels.QDISC_DEQUEUE
+    fn = kernels.qdisc_enqueue if kind == "enqueue" else kernels.qdisc_dequeue
+    work = [f.clone() for f in fields]
+    n = k.launches
+    got = fn(work, *args, spec=spec)
+    assert k.launches == n + 1
+    _in_place(list(got.fields), work, fields, list(want.fields))
+    _eq(list(got.fields), list(want.fields))
+    _eq(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("Q", [1, 8, 64, 65])
+@pytest.mark.parametrize("case", chip_smoke.QDISC_CASES)
+def test_qdisc_kernels_match_plain(card, case, Q):
+    """Both kernels on seeded planes of 1,000 hosts, step by step, and
+    on planes whose ranks and virtual times lie near the int64 limits."""
+    for extreme in (False, True):
+        rs = np.random.default_rng(Q * 31 + chip_smoke.QDISC_CASES.index(case)
+                                   + 7 * extreme)
+        d = chip_smoke.qdisc_discipline(*case, 1000, Q, card)
+        plane = chip_smoke.synthetic_qdisc_plane(
+            rs, case[0], 2_000_000_000, 1000, Q, extreme=extreme)
+        seen = qdisc_steps(
+            rs, d, plane, 2_000_000_000, 6,
+            lambda *a: check_qdisc_kernel(*a, spec=d.spec))
+        assert {"enqueued", "dequeued"} <= seen
+
+
+def test_qdisc_runs_match_plain_runs(card):
+    """The incast scenario (pifo, wfq, RED) and the overload flood under
+    eiffel with wfq and codel through the kernels equal the plain
+    versions' runs on the card, state array by state array."""
+    import pathlib
+
+    import yaml
+
+    from shadow_tpu_torch import interop
+
+    doc = yaml.safe_load((pathlib.Path(__file__).parent.parent / "configs"
+                          / "incast.yaml").read_text())
+    doc.pop("sweep")
+    overload = {**CONGESTED_FLOOD, "qdisc": {
+        "discipline": "eiffel", "rank": "wfq", "drop": "codel",
+        "bucket_width": 4096}}
+    overload["hosts"] = {**CONGESTED_FLOOD["hosts"], "client": {
+        **CONGESTED_FLOOD["hosts"]["client"], "bandwidth_up": "100 Kbit"}}
+    for cfg in (doc, overload):
+        a = build_simulation(cfg, device=card)
+        b = build_simulation(cfg, device=card)
+        b.ops = kernels.PLAIN_OPS
+        kernels.reset_launches()
+        wa = a.run()
+        assert kernels.QDISC_ENQUEUE.launches > 0
+        assert kernels.QDISC_DEQUEUE.launches > 0
+        assert kernels.SEND_DEQUEUE.launches == 0
+        assert b.run() == wa
+        assert a.counters() == b.counters()
+        assert a.audit_chain() == b.audit_chain()
+        na = interop.state_to_numpy(a.state)
+        nb = interop.state_to_numpy(b.state)
+        for path in na:
+            assert np.array_equal(na[path], nb[path]), path
+
+
+def test_rolled_back_qdisc_attempt_keeps_its_base(card):
+    """An optimistic attempt of the mixed flood at 200 Kbit under pifo
+    runs the in-place qdisc kernels and rolls back: its base keeps every
+    tensor, object, version and value (the attempt steps a snapshot of
+    it, which owns the qdisc plane)."""
+    sim = build_simulation(chip_smoke.mixed_flood_qdisc(), device=card)
+    counts = {}
+    sim.ops = chip_smoke.counting_qdisc(kernels.KERNEL_OPS, counts)
+    _, _, viol, _, seen = chip_smoke.rolled_back_attempt(
+        sim, counts, ("qdisc_enqueue", "qdisc_dequeue"))
+    assert viol < NEVER and seen["qdisc_enqueue"] > 0

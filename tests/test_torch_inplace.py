@@ -1,8 +1,10 @@
 """Who owns the tensors the in-place kernels write.
 
 On the card ``ring_append`` writes the NIC's and the router's ring planes
-in place, and ``tcp_ack``, ``tcp_reorder`` and ``tcp_out`` the TCP
-table's fields; each sub-state class lists them in its ``IN_PLACE``.
+in place, ``tcp_ack``, ``tcp_reorder`` and ``tcp_out`` the TCP table's
+fields, and ``qdisc_enqueue`` and ``qdisc_dequeue`` the device-queue
+disciplines' planes; each sub-state class lists them in its
+``IN_PLACE``.
 ``SimState.snapshot()`` clones exactly those and shares the rest, the
 build hands the engine a snapshot of the stack's initial sub-states, and
 each optimistic attempt steps a snapshot of its rollback point.
@@ -11,7 +13,9 @@ Here on the CPU the wrappers run their plain versions, which work out of
 place, so the rollback tests stand the kernels in with ``_in_place``: the
 plain version, its result then copied into the tensors it was given, as
 the kernel leaves them. The card tests (``tests/test_torch_cuda.py``)
-run the same check through the kernels.
+run the same check through the kernels. Each search for a rolled-back
+attempt runs once (the module's ``found``); the check that a shared
+base fails starts from the base the search found.
 """
 
 import dataclasses
@@ -23,7 +27,19 @@ import chip_smoke
 from shadow_tpu_torch import kernels
 from shadow_tpu_torch.core.simtime import NEVER
 from shadow_tpu_torch.net import codel, nic, tcp
+from shadow_tpu_torch.net.qdisc import pifo
+from shadow_tpu_torch.net.qdisc.eiffel import EiffelState
 from shadow_tpu_torch.sim import build_simulation
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The loop path runs many small ops; intra-op threads only add
+    overhead at these widths."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tcp_sim():
@@ -39,6 +55,12 @@ def _in_place(plain, written):
         out = plain(*args, **kw)
         fields = {}
         for i, where in written.items():
+            if isinstance(args[i], list):  # a sub-state's fields, in order
+                for t, v in zip(args[i], kernels.written_result(out, where)):
+                    if v is not t:  # the fields the plain version wrote
+                        t.copy_(v)
+                fields[where] = tuple(args[i])
+                continue
             if args[i] is not None:
                 args[i].copy_(kernels.written_result(out, where))
             if isinstance(where, str):
@@ -53,24 +75,34 @@ def _in_place(plain, written):
 
 
 IN_PLACE_KERNELS = (kernels.RING_APPEND, kernels.TCP_ACK,
-                    kernels.TCP_REORDER, kernels.TCP_OUT)
+                    kernels.TCP_REORDER, kernels.TCP_OUT,
+                    kernels.QDISC_ENQUEUE, kernels.QDISC_DEQUEUE)
 IN_PLACE_OPS = kernels.PLAIN_OPS._replace(**{
     k.name: _in_place(getattr(kernels, f"{k.name}_plain"), k.writes)
     for k in IN_PLACE_KERNELS})
 
 CLASSES = {nic.SUB: nic.NicState, codel.SUB: codel.RouterState,
            tcp.SUB: tcp.TcpState}
+QDISC_CLASSES = (pifo.PifoState, EiffelState)
 
 
 def test_in_place_fields_name_real_fields():
     """Each sub-state's IN_PLACE names its own fields, and the result
     fields of each kernel's ``writes`` are fields of its result."""
-    for key, cls in CLASSES.items():
+    for key, cls in (*CLASSES.items(), *enumerate(QDISC_CLASSES)):
         names = {f.name for f in dataclasses.fields(cls)}
         assert cls.IN_PLACE and set(cls.IN_PLACE) <= names, key
+    # the qdisc kernels write every field of the plane but the class
+    # table, in kernels.QDISC_FIELDS order
+    for cls in QDISC_CLASSES:
+        names = [f.name for f in dataclasses.fields(cls)]
+        assert set(names) - set(cls.IN_PLACE) == {"cls"}
+        assert names == [n for n in kernels.QDISC_FIELDS if n in names]
     results = {"loop_route": kernels.RouteOut,
                "ring_append": kernels.AppendOut, "tcp_ack": kernels.AckOut,
-               "tcp_reorder": kernels.ReorderOut, "tcp_out": kernels.OutOut}
+               "tcp_reorder": kernels.ReorderOut, "tcp_out": kernels.OutOut,
+               "qdisc_enqueue": kernels.QdiscEnqueueOut,
+               "qdisc_dequeue": kernels.QdiscDequeueOut}
     assert {k.name for k in kernels.KERNELS if k.writes} == set(results)
     for name, out in results.items():
         writes = getattr(kernels, name.upper()).writes
@@ -141,25 +173,6 @@ def _snapshot_flood():
     return sim, counts
 
 
-def test_rolled_back_attempt_with_appends_keeps_its_base():
-    """An attempt that appended to both rings in place rolls back, and
-    its base keeps every tensor: object, version and value."""
-    sim, counts = _snapshot_flood()
-    _, _, viol, _, appends = chip_smoke.rolled_back_attempt(
-        sim, counts, ("nic", "router"))
-    assert viol < NEVER and appends["nic"] > 0 and appends["router"] > 0
-
-
-def test_attempts_that_share_their_base_fail_the_check(monkeypatch):
-    """With a snapshot that shares the rings an attempt's appends land in
-    its base's rings, and the check sees it."""
-    for cls in CLASSES.values():
-        monkeypatch.setattr(cls, "IN_PLACE", ())
-    sim, counts = _snapshot_flood()
-    with pytest.raises(SystemExit):
-        chip_smoke.rolled_back_attempt(sim, counts, ("nic", "router"))
-
-
 def _tcp_attempts():
     sim = _tcp_sim()
     counts = {}
@@ -167,23 +180,95 @@ def _tcp_attempts():
     return sim, counts
 
 
-def test_rolled_back_tcp_attempt_keeps_its_base():
+def _qdisc_attempts():
+    sim = build_simulation(chip_smoke.mixed_flood_qdisc(), device="cpu")
+    counts = {}
+    sim.ops = chip_smoke.counting_qdisc(IN_PLACE_OPS, counts)
+    return sim, counts
+
+
+# the searches: (the sim and its counts, what the attempt must count)
+SEARCHES = {"flood": (_snapshot_flood, ("nic", "router")),
+            "tcp": (_tcp_attempts, ("tcp_ack", "tcp_out")),
+            "qdisc": (_qdisc_attempts, ("qdisc_enqueue", "qdisc_dequeue"))}
+
+
+@pytest.fixture(scope="module")
+def found():
+    """Each search for a rolled-back attempt, run once: {name: (sim,
+    counts, rolled_back_attempt's result, a snapshot of the base the
+    attempt rolled back to)}."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            make, need = SEARCHES[name]
+            sim, counts = make()
+            res = chip_smoke.rolled_back_attempt(sim, counts, need)
+            cache[name] = (sim, counts, res, sim.state.snapshot())
+        return cache[name]
+    return get
+
+
+def _shared_base_fails(found, name):
+    """From the found base, with snapshots that share what the kernels
+    write, the attempt's writes land in its base, and the check sees
+    it."""
+    sim, counts, _, base = found(name)
+    sim.state = base
+    with pytest.raises(SystemExit):
+        chip_smoke.rolled_back_attempt(sim, counts, SEARCHES[name][1])
+
+
+def test_rolled_back_attempt_with_appends_keeps_its_base(found):
+    """An attempt that appended to both rings in place rolls back, and
+    its base keeps every tensor: object, version and value."""
+    _, _, (_, _, viol, _, appends), _ = found("flood")
+    assert viol < NEVER and appends["nic"] > 0 and appends["router"] > 0
+
+
+def test_attempts_that_share_their_base_fail_the_check(found, monkeypatch):
+    """With a snapshot that shares the rings an attempt's appends land in
+    its base's rings, and the check sees it."""
+    found("flood")
+    for cls in CLASSES.values():
+        monkeypatch.setattr(cls, "IN_PLACE", ())
+    _shared_base_fails(found, "flood")
+
+
+def test_rolled_back_tcp_attempt_keeps_its_base(found):
     """An attempt that ran tcp_ack and tcp_out in place on masked hosts
     rolls back, and its base keeps every tensor: object, version and
     value."""
-    sim, counts = _tcp_attempts()
-    _, _, viol, _, seen = chip_smoke.rolled_back_attempt(
-        sim, counts, ("tcp_ack", "tcp_out"))
+    _, _, (_, _, viol, _, seen), _ = found("tcp")
     assert viol < NEVER and seen["tcp_ack"] > 0 and seen["tcp_out"] > 0
 
 
-def test_tcp_attempts_that_share_their_base_fail_the_check(monkeypatch):
+def test_tcp_attempts_that_share_their_base_fail_the_check(found,
+                                                          monkeypatch):
     """With a snapshot that shares the TCP table, an attempt's in-place
     writes land in its base's table, and the check sees it."""
+    found("tcp")
     monkeypatch.setattr(tcp.TcpState, "IN_PLACE", ())
-    sim, counts = _tcp_attempts()
-    with pytest.raises(SystemExit):
-        chip_smoke.rolled_back_attempt(sim, counts, ("tcp_ack", "tcp_out"))
+    _shared_base_fails(found, "tcp")
+
+
+def test_rolled_back_qdisc_attempt_keeps_its_base(found):
+    """An attempt that enqueued into and dequeued from the pifo plane in
+    place rolls back, and its base keeps every tensor: object, version
+    and value."""
+    _, _, (_, _, viol, _, seen), _ = found("qdisc")
+    assert viol < NEVER
+    assert seen["qdisc_enqueue"] > 0 and seen["qdisc_dequeue"] > 0
+
+
+def test_qdisc_attempts_that_share_their_base_fail_the_check(found,
+                                                            monkeypatch):
+    """With a snapshot that shares the qdisc plane, an attempt's in-place
+    writes land in its base's plane, and the check sees it."""
+    found("qdisc")
+    monkeypatch.setattr(pifo.PifoState, "IN_PLACE", ())
+    _shared_base_fails(found, "qdisc")
 
 
 def _tcp_args(name):

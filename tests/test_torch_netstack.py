@@ -356,10 +356,6 @@ def test_port_refuses_what_it_does_not_run():
                             packet_trails=True), "A 7")):
         with pytest.raises(BuildError, match=match):
             build_simulation(bad, device="cpu")
-    c = cfg()
-    c["qdisc"] = {"discipline": "pifo"}
-    with pytest.raises(BuildError, match="B9"):
-        build_simulation(c, device="cpu")
     # a TCP stack builds (tcp_bulk is ported); its segments with the
     # packet-trail word are not
     stack = NetStack(2, np.ones(2, np.int64), np.ones(2, np.int64),

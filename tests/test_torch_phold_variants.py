@@ -42,6 +42,16 @@ MS = 1_000_000
 SEC = 1_000_000_000
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The runs take many small ops; intra-op threads only add overhead
+    at these widths."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("H,opts", [
     (1000, {}),
     (16384, {"hot_frac": 0.125, "hot_share": 0.5}),

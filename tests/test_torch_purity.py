@@ -128,3 +128,47 @@ def test_wrappers_take_no_other_device():
     with pytest.raises(ValueError, match="card"):
         kernels.phold_pick(torch.zeros(2), torch.zeros(2, dtype=torch.int32),
                            4)
+
+
+@pytest.mark.parametrize("disc", ["pifo", "eiffel"])
+def test_qdisc_wrappers_take_no_other_device(disc):
+    """K22 and K23 decide by every tensor they take, the discipline's
+    class tables and every field of its plane among them: one elsewhere
+    is refused; on the CPU they run their plain versions and launch
+    nothing."""
+    import numpy as np
+
+    from chip_smoke import qdisc_discipline, synthetic_qdisc_plane
+
+    rs = np.random.default_rng(3)
+    d = qdisc_discipline(disc, "wfq", True, "codel", 4, 2, "cpu")
+    plane = synthetic_qdisc_plane(rs, disc, 10**9, 4, 2)
+    fields = [torch.as_tensor(plane[n]) for n in d.spec.names]
+    mask = torch.ones(4, dtype=torch.bool)
+    dst = torch.zeros(4, dtype=torch.int32)
+    payload = torch.zeros((4, 12), dtype=torch.int32)
+    now = torch.full((4,), 10**9, dtype=torch.int64)
+    calls = {
+        kernels.qdisc_enqueue: (fields, mask, dst, payload, now),
+        kernels.qdisc_dequeue: (fields, now, mask),
+    }
+    for fn, args in calls.items():
+        for i in range(len(fields)):
+            moved = [f.to("meta") if j == i else f
+                     for j, f in enumerate(fields)]
+            with pytest.raises(ValueError):
+                fn(moved, *args[1:], spec=d.spec)
+        for i in range(1, len(args)):
+            moved = [a.to("meta") if j == i else a
+                     for j, a in enumerate(args)]
+            with pytest.raises(ValueError):
+                fn(*moved, spec=d.spec)
+        out = fn(*args, spec=d.spec)
+        assert all(t.device.type == "cpu" for t in out.fields)
+    for table in ("inv_w", "ns_per_byte"):
+        spec = kernels.QdiscSpec(**{
+            **vars(d.spec), table: getattr(d.spec, table).to("meta")})
+        with pytest.raises(ValueError):
+            kernels.qdisc_enqueue(fields, mask, dst, payload, now, spec=spec)
+    assert kernels.QDISC_ENQUEUE.launches == 0
+    assert kernels.QDISC_DEQUEUE.launches == 0
