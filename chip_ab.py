@@ -1,7 +1,7 @@
 """Time the runs of two checkouts of the port on one card.
 
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR] [--reps N]
-        [--shapes phold,config2,config3,config4]
+        [--shapes phold,config2,config3,config4] [--kernel-rounds N]
 
 The shapes are ``chip_smoke.py``'s main runs through the kernels:
 ``phold`` its phase 4 (``build_phold_flagship`` at the bench shape, 16384
@@ -20,6 +20,15 @@ constant NEVER (what a conservative window's check costs), alternating
 which goes first. The last lines give the median, least and most ms per
 window (PHOLD) or seconds a run (the others) of each checkout, shape and
 variant, and the card's name and power limit.
+
+With ``--kernel-rounds N`` each process also times its own window sort
+(``window_sort``) and extraction (``extract_slots``) on one call each:
+the calls of the PHOLD bench run's first window from 5 s on, captured
+through the checkout's ops (the same inputs in both checkouts, which
+end on the same chain), each timed N times in turn as ``chip_smoke``'s
+``graph_ms`` (200 calls replayed from a CUDA graph: device time). The
+last lines then also give each checkout's median, least and most ms a
+call of each.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from shadow_tpu_torch.flagship import build_phold_flagship
 from shadow_tpu_torch.sim import build_simulation
 
 tag, reps, stub_first = sys.argv[1], int(sys.argv[2]), sys.argv[3] == "1"
-shapes = sys.argv[4].split(",")
+shapes, kernel_rounds = sys.argv[4].split(","), int(sys.argv[5])
 kernels.build(force=True)
 
 
@@ -82,6 +91,33 @@ for shape in shapes:
                 "events_committed": c["events_committed"],
                 "chain": f"{sim.audit_chain():#018x}"}), flush=True)
             del sim
+
+if kernel_rounds:
+    import chip_smoke
+    sim, _ = phold()
+    sim.run(until=5_000_000_000)
+    base, calls = sim.ops, {}
+    keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+
+    def capture(name):
+        fn = getattr(base, name)
+
+        def call(*a, **k):
+            calls.setdefault(name, (fn, [keep(x) for x in a],
+                                    {n: keep(x) for n, x in k.items()}))
+            return fn(*a, **k)
+        return call
+
+
+    sim.ops = base._replace(**{n: capture(n) for n in
+                               ("window_sort", "extract_slots")})
+    sim.run(until=int(sim.state.pool.time.min()) + sim.runahead)
+    for rnd in range(kernel_rounds):
+        for name, (fn, a, k) in sorted(calls.items()):
+            ms = chip_smoke.graph_ms(lambda: fn(*a, **k), 200)
+            print(json.dumps({"tree": tag, "shape": "phold", "kernel": name,
+                              "rep": rnd, "ms": ms}), flush=True)
 """
 
 
@@ -100,6 +136,7 @@ def main() -> None:
         os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--shapes", default="phold")
+    ap.add_argument("--kernel-rounds", type=int, default=0)
     args = ap.parse_args()
     card = card_line()
     runs = []
@@ -110,7 +147,8 @@ def main() -> None:
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
         out = subprocess.run(
             [sys.executable, "-c", CHILD, tag, str(args.reps),
-             "1" if i == 2 else "0", args.shapes],
+             "1" if i == 2 else "0", args.shapes,
+             str(args.kernel_rounds)],
             cwd=tree, env=env, capture_output=True, text=True, timeout=1800)
         sys.stderr.write(out.stderr)
         if out.returncode != 0:
@@ -119,7 +157,12 @@ def main() -> None:
         for ln in out.stdout.splitlines():
             print(f"[{card}] {ln}", flush=True)
             runs.append(json.loads(ln))
-    medians = {}
+    medians, kernel_ms = {}, {}
+    for r in runs:
+        if "kernel" in r:
+            kernel_ms.setdefault(f"{r['kernel']} {r['tree']}",
+                                 []).append(r["ms"])
+    runs = [r for r in runs if "kernel" not in r]
     for shape in args.shapes.split(","):
         of = [r for r in runs if r["shape"] == shape]
         chains = {(r["chain"], r["events_committed"], r["windows"])
@@ -138,7 +181,11 @@ def main() -> None:
                           "min_wall_s": min(v["wall_s"]),
                           "max_wall_s": max(v["wall_s"]),
                           "runs": len(v["wall_s"])}
-                      for k, v in medians.items()}))
+                      for k, v in medians.items()}
+                     | {k: {"median_ms": statistics.median(v),
+                            "min_ms": min(v), "max_ms": max(v),
+                            "rounds": len(v)}
+                        for k, v in kernel_ms.items()}))
     print(card)
 
 

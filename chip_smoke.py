@@ -21,21 +21,26 @@ their NICs; and four paths of PHOLD's variants and the CPU model: the
 bench shape with its hot-spot variant (``PHOLD_HOT``), its local-span
 variant (``PHOLD_LOCAL``) and a quarter of its hosts at 10 ms of CPU an
 event (``PHOLD_CPU``), and config 2 with its servers at 5 ms an event
-(``CONFIG2_CPU``); and the two paths of the device-queue disciplines:
+(``CONFIG2_CPU``); the two paths of the device-queue disciplines:
 config 2 with its clients' uplinks starved to 300 Kbit under
 ``configs/incast.yaml``'s pifo section (WFQ, RED; ``CONFIG2_PIFO``) and
-under eiffel with WFQ and the CoDel hook (``CONFIG2_EIFFEL``). Phases,
-each printing its numbers beside the card's name and power limit:
+under eiffel with WFQ and the CoDel hook (``CONFIG2_EIFFEL``); and the
+two islands paths (``IslandSimulation``, PHOLD over 8 virtual shards on
+the card): the bench shape under the barrier ``run()``
+(``PHOLD_ISLANDS``: X = 2,048) and MULTICHIP_r04's shape (8,192 hosts,
+X = 256) through ``build_phold_flagship(..., num_shards=8)`` and
+``run_stepwise`` to 3 s with the JAX defaults (``R04``). Phases, each
+printing its numbers beside the card's name and power limit:
 
 1. the card: name, power limit, count, torch and CUDA versions;
-2. build the twenty-three CUDA kernels from ``shadow_tpu_torch/csrc``
+2. build the twenty-four CUDA kernels from ``shadow_tpu_torch/csrc``
    with nvcc (one process per source, all at once) and print ptxas's
    register and shared-memory report, and for ``loop_select``,
    ``loop_route``, ``ring_append``, ``tcp_ack``, ``tcp_reorder``,
    ``tcp_out``, ``nic_tx``, ``nic_rx``, ``nic_gate``, ``extract_slots``,
    ``phold_forward``, ``window_sort``, ``pool_merge``, ``cpu_serialize``,
-   ``qdisc_enqueue`` and ``qdisc_dequeue`` each entry function's
-   registers, shared memory and spill bytes;
+   ``qdisc_enqueue``, ``qdisc_dequeue`` and ``island_route`` each entry
+   function's registers, shared memory and spill bytes;
 3. each kernel at the bench shape's widths, on inputs taken from a real
    window of the run: equal bit for bit to its plain PyTorch version on
    the card; the kernel's device time (200 calls replayed from one CUDA
@@ -182,15 +187,36 @@ each printing its numbers beside the card's name and power limit:
     versions, state by state; and a rolled-back attempt of the mixed
     flood at 200 Kbit under pifo, after the qdisc kernels wrote its
     snapshot's plane in place, that leaves its base as it was. K22 and
-    K23 must launch on none of the ten earlier paths.
+    K23 must launch on none of the ten earlier paths;
+21. every kernel of the islands paths (``ISLANDS_PATH``: K19 and K3 with
+    the shard dim, K1, K2, K24 ``island_route``) on its busiest call
+    over ten windows from a busy cut of each path, equal bit for bit to
+    its plain version and timed beside its bound; K24 also on a
+    synthetic full-width call (``synthetic_route``: the bench shape's
+    8 × 40,960-row pools and candidates, dt ties and DT_MAX, NEVER rows,
+    groups over X and empty ones, rows dropped past C_keep); ten
+    bench-shape islands windows alone and under the profiler;
+22. each islands path in one run through the kernels, launch counts set
+    to 0 just before it and read just after: windows, every counter, the
+    chain and a digest of the final [8, C_shard] pool (``pool_digest``)
+    equal to the JAX package's (``REF_ISLANDS``: P's 23,592,960 events and
+    chain on the bench shape; MULTICHIP_r04's 80 windows, 655,360 events
+    and 573,833 rows exchanged), K19, K3, K1, K2 and K24 once a window,
+    K12 ``spec_check`` and K20 ``pool_merge`` never;
+23. the bench shape's islands to ``ISLANDS_CUT`` through the kernels and
+    the plain versions, at X = 2,048 and at ``ISLANDS_DEFER_X`` = 256
+    (rows defer every window, and ``exchange_deferred`` must be above 0):
+    windows, counters, chain and every state array equal. K24 must
+    launch on none of the twelve earlier paths.
 
 It prints the kernels' JSON line, the card line and, last, the ok line.
 The line has one entry for each kernel on each main path (``path``
 "phold", "config2", "config3", "config4", "mixed", "config3_100mbit",
-"phold_hot", "phold_local", "phold_cpu", "config2_cpu", "config2_pifo"
-or "config2_eiffel"): its ``launches`` in that path's run (phase 4, 7,
-10, 13, 14, 12, 16 or 19), and its times and bound on that path's inputs
-(phase 3, 6, 9, 12, 15 or 18);
+"phold_hot", "phold_local", "phold_cpu", "config2_cpu", "config2_pifo",
+"config2_eiffel", "phold_islands" or "phold_islands_r04"): its
+``launches`` in that path's run (phase 4, 7, 10, 13, 14, 12, 16, 19 or
+22), and its times and bound on that path's inputs (phase 3, 6, 9, 12,
+15, 18 or 21);
 ``ms`` is the device time, ``issue_ms`` the issue time,
 ``library_ms`` the ``torch.sort`` yardstick of the two sorts (null for
 the other kernels).
@@ -205,8 +231,9 @@ PyTorch/CUDA port", gives the commands):
 through ``shadow_tpu.sim.build_simulation`` then ``sim.run()``, and
 config 4 and the mixed run (``CONFIG4``, ``MIXED``) through
 ``build_simulation`` then ``sim.run_optimistic()``, the four new
-paths through ``build_simulation`` then ``sim.run()``, and the qdisc
-paths with ``python tools/qdisc_reference.py``.
+paths through ``build_simulation`` then ``sim.run()``, the qdisc
+paths with ``python tools/qdisc_reference.py``, and the islands paths
+with ``python tools/islands_reference.py``.
 """
 
 from __future__ import annotations
@@ -479,6 +506,67 @@ REF_QDISC = {
             micro_steps=456, outbox_stall_deferred=1_526_993,
             packets_delivered=35_799, packets_dropped_loss=41,
             packets_sent=35_840)},
+}
+
+
+def pool_digest(arrays: dict) -> str:
+    """A digest of every ``pool.*`` array of a state flattened by the
+    interop paths (each path, dtype, shape and bytes, in path order): on
+    the islands layout, the whole ``[S, C_shard]`` pool, cell by cell."""
+    h = hashlib.sha256()
+    for path in sorted(p for p in arrays if p.startswith("pool.")):
+        a = np.ascontiguousarray(arrays[path])
+        h.update(f"{path} {a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+# The islands paths. PHOLD_ISLANDS: the bench shape over 8 virtual shards
+# under the barrier driver, X = the JAX flagship's max(64, Hl·msgload // S)
+# = 2,048, so C_shard = 24,576 + 8 × 2,048 = 40,960. R04: MULTICHIP_r04's
+# shape (__graft_entry__._dryrun_inproc at 8 devices) with the defaults,
+# async on, under run_stepwise to 3 s.
+ISLAND_SHARDS = 8
+ISLAND_X = max(64, BENCH["num_hosts"] // ISLAND_SHARDS * BENCH["msgload"]
+               // ISLAND_SHARDS)
+
+
+def islands_config(exchange_slots: int = ISLAND_X) -> dict:
+    cfg = phold_config()
+    cfg["experimental"] |= {"num_shards": ISLAND_SHARDS,
+                            "island_mode": "vmap", "async_islands": False,
+                            "exchange_slots": exchange_slots}
+    return cfg
+
+
+PHOLD_ISLANDS = islands_config()
+R04 = dict(num_hosts=8192, msgload=2, stop_s=10, runtime_s=8,
+           event_capacity=3 * 8192, K=8, num_shards=8, until=3_000_000_000)
+
+# The JAX package's values for the islands paths (island_mode vmap):
+# JAX_PLATFORMS=cpu python tools/islands_reference.py on a CPU prints them
+# (≈12 min for phold_islands, ≈30 s for phold_islands_r04): windows, every
+# counter, the audit chain and pool_digest of the final [S, C_shard] pool.
+# phold_islands commits P's events and ends on P's chain (REF_AUDIT_CHAIN):
+# islands are bit-identical to the global engine, only the windows differ
+# (the deferral clamp ends windows early).
+REF_ISLANDS = {
+    "phold_islands": {
+        "windows": 359, "audit_chain": REF_AUDIT_CHAIN,
+        "pool_digest": "09f9762227be06d7",
+        "counters": all_counters(
+            bytes_sent=1_509_949_440, events_committed=23_592_960,
+            events_emitted=23_592_960, exchange_deferred=178_132,
+            exchange_sent=20_643_447, micro_steps=2872,
+            packets_sent=23_592_960)},
+    "phold_islands_r04": {
+        "windows": 80, "audit_chain": 0x6DAC9BD826275B32,
+        "pool_digest": "0112f002ad72311e",
+        "counters": all_counters(
+            bytes_sent=41_943_040, events_committed=655_360,
+            events_emitted=655_360, exchange_deferred=15_100,
+            exchange_sent=573_833, micro_steps=640,
+            packets_sent=655_360)},
 }
 
 
@@ -822,6 +910,7 @@ REPLACES = {
     "cpu_serialize": "shadow_tpu/core/engine.py:1224",
     "qdisc_enqueue": "shadow_tpu/net/qdisc/pifo.py:178",
     "qdisc_dequeue": "shadow_tpu/net/qdisc/pifo.py:200",
+    "island_route": "shadow_tpu/core/engine.py:283",
 }
 REPLACES_LOOP = {"cpu_serialize": "shadow_tpu/core/engine.py:904"}
 
@@ -831,7 +920,8 @@ ENTRIES = {"plan": "loop_select", "apply": "loop_select",
            "spec_init": "spec_check", "window_count": "window_sort",
            "window_pass": "window_sort", "window_place": "window_sort",
            "merge_count": "pool_merge", "merge_first_pass": "pool_merge",
-           "merge_pass": "pool_merge"}
+           "merge_pass": "pool_merge", "route_rank": "island_route",
+           "route_write": "island_route"}
 
 
 def fail(msg: str) -> None:
@@ -1060,8 +1150,8 @@ def kernel_bound(name: str, args, kw, out):
         return bound(reads + C * (row - 8) + nbytes(*out), 0)
     if name == "extract_slots":
         s_k1, perm, p_t = args[0], args[1], args[2]
-        H, Kc, PP = args[8], args[9], args[7].shape[1]
-        N, C = s_k1.shape[0], p_t.shape[0]
+        H, Kc, PP = args[8], args[9], args[7].shape[-1]
+        N, C = s_k1.shape[0], p_t.numel()
         row = 8 + 3 * 4 + 8 * PP  # time, src, seq, kind, payload
         # every pool row in the window lands in the dense block with a
         # finite time, every filler there is NEVER
@@ -1074,6 +1164,15 @@ def kernel_bound(name: str, args, kw, out):
         ops = N * (4 + max(Kc - 1, 1).bit_length())
         return bound(nbytes(s_k1, perm) + C * row + 4 * (C - n_dense)
                      + H * Kc * row + C * (row + 4), ops)
+    if name == "island_route":
+        # every candidate's time read (its group and dt), every column
+        # but the time of each real row that lands in a next pool, and the
+        # next pools and the counts written
+        tail, em = args
+        PP = tail.payload.shape[-1]
+        n_real = int((out.time != NEVER).sum())
+        return bound(nbytes(tail.time, em.time) + n_real * (16 + 8 * PP)
+                     + nbytes(*out), 0)
     if name == "phold_forward":
         n_send = int(out.stats[:, 1].sum())
         H, K = args[0].shape
@@ -1514,6 +1613,8 @@ def activity(name: str, args, out) -> int:
         return int(args[1].sum())  # packets offered
     if name == "qdisc_dequeue":
         return int(out.have.sum())  # packets handed up
+    if name == "island_route":
+        return int(out.stats[:, 1].sum())  # rows sent
     return int(args[5].sum())  # ring_append, tcp_demux: the mask
 
 
@@ -1740,7 +1841,7 @@ def profile_windows(card: str, sim, label: str, span: int,
 
     run = sim.run_optimistic if optimistic else sim.run
     saved = sim.state.snapshot()
-    first = sim._frontier(sim.stop_time).mn
+    first = int(sim.state.pool.time.min())
     until = first + span
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1748,7 +1849,8 @@ def profile_windows(card: str, sim, label: str, span: int,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     chain = sim.audit_chain()
-    steps = sim.counters()["micro_steps"] - int(saved.counters.micro_steps)
+    steps = sim.counters()["micro_steps"] - int(
+        saved.counters.micro_steps.sum())
     sim.state = saved
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1872,10 +1974,20 @@ def compare_calls(card: str, phase: str, calls: dict) -> dict:
             if "drop mode" in label and n == 0:
                 fail(f"{phase}: the synthetic drop-mode state dropped none")
         if name == "extract_slots":
-            extra = f" N={args[0].shape[0]} C={args[2].shape[0]} Kc={args[9]}"
+            extra = (f" N={args[0].shape[0]} C={args[2].numel()} "
+                     f"Kc={args[9]} shards={(args[10:] or (1,))[0]}")
         if name == "window_sort":
-            extra = (f" C={args[0].shape[0]} H={args[6]} Kc={args[7]} "
-                     f"N={got[0].shape[0]}")
+            extra = (f" C={args[0].numel()} H={args[6]} Kc={args[7]} "
+                     f"N={got[0].shape[0]} shards={(args[8:] or (1,))[0]}")
+        if name == "island_route":
+            st = want.stats
+            m = (args[0].time.numel() + args[1].time.numel()) // kw["shards"]
+            extra = (f" S={kw['shards']} X={kw['exchange_slots']} "
+                     f"C_shard={kw['capacity']} M={m}"
+                     f" dropped={int(st[:, 0].sum())} sent="
+                     f"{int(st[:, 1].sum())} deferred={int(st[:, 2].sum())}")
+            if "synthetic" in label and not int(st[:, 0].sum()):
+                fail(f"{phase}: the synthetic route dropped no row")
         if name == "pool_merge":
             extra = (f" blocks={len(args[0])} M="
                      f"{sum(b.time.shape[0] for b in args[0])} C={args[1]} "
@@ -2157,6 +2269,48 @@ def synthetic_spec_check(H: int, N: int, device, seed: int = 19):
     src = np.where(rs.random(N) < 0.1, dst, rs.integers(0, H, N))
     return tuple(torch.as_tensor(a, device=device) for a in (
         t, dst, src.astype(np.int32), done_t)), {}
+
+
+ROUTE_FOREIGN = (0.0, 1.0, 0.5, 0.02)
+
+
+def synthetic_route(S: int, X: int, Hl: int, C: int, M: int, device,
+                    PP: int = 6, real: float = 0.45, seed: int = 37):
+    """``island_route``'s arguments for S shards of Hl hosts, pools of C
+    rows and M candidates a shard (C tail rows, then M - C emission
+    rows): real rows at six tied times and a few at dt = DT_MAX and
+    before the window, NEVER rows interleaved, dst outside the hosts;
+    shard s's rows foreign with the chance ROUTE_FOREIGN[s % 4] (none:
+    every group of it empty; all of them). At ``real`` = 0.45 and C_keep
+    well below the real rows a shard, the remainder passes C_keep and
+    rows drop."""
+    rs = np.random.default_rng(seed)
+    H = S * Hl
+    ws = 1_000_000_000
+    t = np.where(rs.random((S, M)) < real,
+                 ws + rs.integers(0, 6, (S, M)) * 1_000_000,
+                 NEVER).astype(np.int64)
+    t[rs.random((S, M)) < 0.01] = ws + kernels.DT_MAX + rs.integers(0, 3)
+    t[rs.random((S, M)) < 0.01] = ws - 7
+    f = np.array([ROUTE_FOREIGN[s % 4] for s in range(S)])[:, None]
+    own = np.arange(S)[:, None] * Hl + rs.integers(0, Hl, (S, M))
+    d = np.where(rs.random((S, M)) < f, rs.integers(0, H, (S, M)),
+                 own).astype(np.int32)
+    d[rs.random((S, M)) < 0.005] = H + 3
+    cols = dict(
+        time=t, dst=d, src=rs.integers(0, H, (S, M)).astype(np.int32),
+        seq=rs.integers(0, 2**31 - 1, (S, M)).astype(np.int32),
+        kind=rs.integers(0, 4, (S, M)).astype(np.int32),
+        payload=rs.integers(-2**63, 2**63 - 1, (S, M, PP), dtype=np.int64))
+
+    def block(a, b):
+        return kernels.Tail(**{
+            k: torch.as_tensor(np.ascontiguousarray(
+                v[:, a:b].reshape((-1,) + v.shape[2:])), device=device)
+            for k, v in cols.items()})
+
+    return (block(0, C), block(C, M)), dict(
+        shards=S, exchange_slots=X, num_hosts=H, capacity=C, win_start=ws)
 
 
 def synthetic_nic_refill(H: int, device, seed: int = 23):
@@ -2511,14 +2665,14 @@ def compiler_view(reports: dict) -> dict:
     bytes (stores + loads)}} of the matrix path's extract_slots and
     phold_forward, the micro-step's two kernels, the in-place net-stack
     kernels, the NIC's admission kernels, the window's two sorts, the CPU
-    model and the device-queue disciplines' two kernels, from nvcc's
-    -Xptxas -v reports."""
+    model, the device-queue disciplines' two kernels and the islands'
+    route, from nvcc's -Xptxas -v reports."""
     view = {}
     for name in ("extract_slots", "phold_forward", "loop_select",
                  "loop_route", "ring_append", "tcp_ack",
                  "tcp_reorder", "tcp_out", "nic_tx", "nic_rx", "nic_gate",
                  "window_sort", "pool_merge", "cpu_serialize",
-                 "qdisc_enqueue", "qdisc_dequeue"):
+                 "qdisc_enqueue", "qdisc_dequeue", "island_route"):
         funcs, cur = {}, None
         for ln in reports[name].splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -3262,6 +3416,183 @@ def check_qdisc_ref(phase: str, sim, windows, c, chain, ref) -> None:
             fail(f"{phase}: {what} = {got}, want {want}")
 
 
+# ---------------------------------------------------------------------------
+# the islands engine: PHOLD over 8 virtual shards
+# ---------------------------------------------------------------------------
+
+
+def r04_sim(ops=kernels.KERNEL_OPS):
+    """MULTICHIP_r04's shape through the flagship, the JAX defaults (async
+    islands on, so only ``run_stepwise`` drives it)."""
+    r = R04
+    sim = build_phold_flagship(
+        r["num_hosts"], msgload=r["msgload"], stop_s=r["stop_s"],
+        runtime_s=r["runtime_s"], event_capacity=r["event_capacity"],
+        K=r["K"], num_shards=r["num_shards"])
+    sim.ops = ops
+    return sim
+
+
+# name: (build, until or None for the stop, stepwise, the busy cut phase
+# 21 captures from)
+ISLANDS_PATHS = {
+    "phold_islands": (lambda: build_simulation(PHOLD_ISLANDS), None, False,
+                      5_000_000_000),
+    "phold_islands_r04": (r04_sim, R04["until"], True, 2_000_000_000),
+}
+ISLANDS_PATH = ("window_sort", "extract_slots", "phold_forward",
+                "audit_commit", "island_route")
+# conservative islands run no speculation check, and K24 is their merge
+ISLANDS_QUIET = ("spec_check", "pool_merge")
+ISLANDS_CUT = 2_000_000_000  # one second of traffic (PHOLD starts at 1 s)
+ISLANDS_DEFER_X = 256
+
+
+def island_step_windows(sim, n: int) -> None:
+    """Step ``n`` windows as the barrier driver does."""
+    for _ in range(n):
+        mn, _, clamp = sim._island_frontier()
+        if mn >= sim.stop_time:
+            return
+        sim.step(mn, max(mn, min(mn + sim.runahead, sim.stop_time, clamp)))
+
+
+def islands_run(card: str, label: str, build, until=None,
+                stepwise: bool = False):
+    """An islands sim from ``build()`` run to ``until`` (``run`` or
+    ``run_stepwise``), its launches counted from 0."""
+    t0 = time.perf_counter()
+    sim = build()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    windows = (sim.run_stepwise if stepwise else sim.run)(until)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    c = sim.counters()
+    chain = sim.audit_chain()
+    digest = pool_digest(interop.state_to_numpy(sim.state))
+    wall = t2 - t1
+    print(f"[{card}] {label}: build_s={t1 - t0:.3f} wall_s={wall:.3f} "
+          f"windows={windows} ms_per_window={wall / windows * 1e3:.4f} "
+          f"events_committed={c['events_committed']} "
+          f"events_per_s={c['events_committed'] / wall:.1f} "
+          f"exchange_sent={c['exchange_sent']} "
+          f"exchange_deferred={c['exchange_deferred']} "
+          f"S={sim.num_shards} X={sim.exchange_slots} "
+          f"C_shard={sim._C_shard} audit_chain={chain:#018x} "
+          f"pool_digest={digest} launches={launches}", flush=True)
+    return sim, windows, c, chain, digest, launches
+
+
+def phase_islands_kernels(card: str) -> dict:
+    """Phase 21: every kernel of the islands paths on its busiest call
+    over ten windows from the busy cut, against its plain version and
+    timed beside its bound (K19 and K3 on the shard dim's own calls), K24
+    also on a synthetic full-width call (``synthetic_route``: S = 8, X =
+    2,048, the bench shape's C_shard and candidates, dt ties and DT_MAX,
+    NEVER rows interleaved, groups over X and empty ones, a remainder
+    past C_keep); and ten bench-shape windows alone and under the
+    profiler."""
+    results = {}
+    for name, (build, _, _, mid) in ISLANDS_PATHS.items():
+        sim = build()
+        sim.run_stepwise(until=mid)
+        best: dict = {}
+        sim.ops = capture_ops(best, ISLANDS_PATH)
+        island_step_windows(sim, 10)
+        print(f"[{card}] phase 21 {name} inputs: the busiest call of each "
+              f"kernel over ten windows from {mid}, H={sim.num_hosts} "
+              f"K={sim.K} S={sim.num_shards} X={sim.exchange_slots} "
+              f"C_shard={sim._C_shard}: "
+              + json.dumps({k: v[0] for k, v in best.items()}), flush=True)
+        missing = [k for k in ISLANDS_PATH if k not in best]
+        if missing:
+            fail(f"phase 21 {name}: the windows did not call {missing}")
+        if name == "phold_islands":
+            S, X = sim.num_shards, sim.exchange_slots
+            Hl = sim.num_hosts // S
+            C = sim._C_shard
+            args, kw = synthetic_route(S, X, Hl, C, C + Hl * sim.K,
+                                       sim.device)
+            best["island_route synthetic"] = (0, args, kw)
+        results[name] = compare_calls(card, f"phase 21 {name}", best)
+        if name == "phold_islands":
+            sim.ops = kernels.KERNEL_OPS
+            profile_windows(card, sim, "phase 21 the phold_islands windows",
+                            10 * sim.runahead)
+        del sim, best
+    return results
+
+
+def islands_phases(card: str) -> dict:
+    """Phases 22-23: each islands path's whole run through the kernels
+    against the JAX package's values (``REF_ISLANDS``; P's events and
+    chain on phold_islands; MULTICHIP_r04's windows, events and rows
+    exchanged on phold_islands_r04), K24 once a window and K12 and K20
+    never; then phold_islands to ISLANDS_CUT through the kernels and the
+    plain versions, at its X and at ISLANDS_DEFER_X, state by state.
+    Returns the whole runs' launches by path."""
+    out = {}
+    for name, (build, until, stepwise, _) in ISLANDS_PATHS.items():
+        sim, windows, c, chain, digest, launches = islands_run(
+            card, f"phase 22 {name} through the kernels", build, until,
+            stepwise)
+        ref = REF_ISLANDS[name]
+        for what, got, want in (("windows", windows, ref["windows"]),
+                                ("counters", c, ref["counters"]),
+                                ("audit_chain", chain, ref["audit_chain"]),
+                                ("pool_digest", digest,
+                                 ref["pool_digest"])):
+            if got != want:
+                fail(f"phase 22 {name}: {what} = {got}, want {want}")
+        for k in kernels.KERNELS:
+            n = launches[k.name]
+            if n != (windows if k.name in ISLANDS_PATH else 0):
+                fail(f"phase 22 {name}: {k.name} launched {n} times in "
+                     f"{windows} windows")
+        win = sim.obs_snapshot()["win"]
+        if win["matrix_dispatches"] != windows:
+            fail(f"phase 22 {name}: not every window took the matrix path")
+        out[name] = launches
+        print(f"[{card}] phase 22 {name} equal to the JAX package's "
+              f"windows, counters, chain and final pool; "
+              f"{', '.join(ISLANDS_QUIET)} launched 0 times", flush=True)
+        del sim
+    for X in (ISLAND_X, ISLANDS_DEFER_X):
+        cfg = islands_config(X)
+        runs = [islands_run(
+            card, f"phase 23 phold_islands X={X} to {ISLANDS_CUT} "
+            f"({label})", lambda ops=ops: _with_ops(cfg, ops), ISLANDS_CUT)
+            for ops, label in ((kernels.KERNEL_OPS, "kernels"),
+                               (kernels.PLAIN_OPS, "plain versions"))]
+        (ks, kw, kc, kch, kd, _), (ps, pw, pc, pch, pd, pl) = runs
+        if any(pl.values()):
+            fail(f"phase 23 X={X}: a kernel launched in the plain run: {pl}")
+        if (pw, pc, pch, pd) != (kw, kc, kch, kd):
+            fail(f"phase 23 X={X}: the plain run's windows, counters, chain "
+                 f"or pool differ")
+        diff = same_state(ks.state, ps.state)
+        if diff:
+            fail(f"phase 23 X={X}: final state differs from the kernels' "
+                 f"in {diff}")
+        if X == ISLANDS_DEFER_X and kc["exchange_deferred"] == 0:
+            fail(f"phase 23: no row deferred at X={X}")
+        print(f"[{card}] phase 23 phold_islands X={X} plain run equal to "
+              f"the kernels' run to {ISLANDS_CUT}: windows, counters, "
+              f"chain, {len(interop.state_paths(ps.state))} state arrays; "
+              f"exchange_deferred={kc['exchange_deferred']}", flush=True)
+        del runs, ks, ps
+    return out
+
+
+def _with_ops(cfg: dict, ops):
+    sim = build_simulation(cfg)
+    sim.ops = ops
+    return sim
+
+
 def same_state(a, b) -> list:
     """The paths where two states' arrays differ (or the path sets)."""
     na, nb = interop.state_to_numpy(a), interop.state_to_numpy(b)
@@ -3447,6 +3778,10 @@ def main() -> None:
     qdisc_results = phase_qdisc(card)
     qdisc_launches = qdisc_phases(card)
 
+    t_islands = time.perf_counter()
+    islands_results = phase_islands_kernels(card)
+    islands_launches = islands_phases(card)
+
     # one entry for each kernel on each main path: its launches in that
     # path's run, and its times and bound on that path's inputs
     paths = (("phold", PHOLD_PATH, launches, results),
@@ -3472,6 +3807,13 @@ def main() -> None:
                      f"no pifo or eiffel qdisc")
     paths += tuple((name, QDISC_PATH, qdisc_launches[name],
                     qdisc_results[name]) for name in QDISC_PATHS)
+    # K24 is the islands' merge: it launches on no earlier path
+    for path, _, counts, _ in paths:
+        if counts["island_route"]:
+            fail(f"island_route launched {counts['island_route']} times on "
+                 f"{path}, which has no islands")
+    paths += tuple((name, ISLANDS_PATH, islands_launches[name],
+                    islands_results[name]) for name in ISLANDS_PATHS)
     line = {"kernels": [
         {
             "name": k.name,
@@ -3496,7 +3838,8 @@ def main() -> None:
     print(f"[{card}] phases 9-11 wall_s={t_opt - t_tcp:.3f}; phases 12-14 "
           f"wall_s={t_new - t_opt:.3f}; phases 15-17 "
           f"wall_s={t_qdisc - t_new:.3f}; phases 18-20 "
-          f"wall_s={t_end - t_qdisc:.3f}; whole script "
+          f"wall_s={t_islands - t_qdisc:.3f}; phases 21-23 "
+          f"wall_s={t_end - t_islands:.3f}; whole script "
           f"wall_s={t_end - t_start:.3f}", flush=True)
     print(json.dumps(line))
     print(card)

@@ -84,8 +84,10 @@ runaheads: an attempt steps a snapshot of the committed state until the
 pool holds no event below the window end or a step reports a violation,
 which rolls the window back and retries it shorter.
 
-Not ported here (``ROADMAP.md``): islands, pool gears and the spill
-tier.
+The islands engine (``parallel/islands.py``) subclasses ``Simulation``:
+its matrix step extracts every shard's window in the same two launches
+and merges through ``island_route`` in place of ``pool_merge``. Not
+ported here (``ROADMAP.md``): pool gears and the spill tier.
 """
 
 from __future__ import annotations
@@ -202,25 +204,32 @@ def red_zone(capacity: int) -> int:
 
 
 def window_keys(pool: EventPool, win_start: int, win_end: int, H: int,
-                Kc: int, ops: kernels.WindowOps = kernels.KERNEL_OPS):
+                Kc: int, ops: kernels.WindowOps = kernels.KERNEL_OPS,
+                shards: int = 1):
     """The window's first sort (``window_sort``). Returns (s_k1, perm): the
     sorted k1 keys of the C pool rows and H·Kc filler rows, and for each
     sorted position the row it came from (pool rows first, then fillers,
-    host-major)."""
+    host-major). Under islands (``shards`` > 1, the pool [S, C]) each
+    shard's rows sort apart on their shard-local row."""
     return ops.window_sort(pool.time, pool.dst, pool.src, pool.seq,
-                           win_start, win_end, H, Kc)
+                           win_start, win_end, H, Kc, shards)
 
 
 def dense_extract(pool: EventPool, win_start: int, win_end: int, H: int,
-                  Kc: int, ops: kernels.WindowOps = kernels.KERNEL_OPS):
+                  Kc: int, ops: kernels.WindowOps = kernels.KERNEL_OPS,
+                  shards: int = 1):
     """Extract the window [win_start, win_end) into a dense [H, Kc] matrix
     and the tail of every other row (the JAX package's ``_dense_extract``):
     the first sort, then ``extract_slots`` places every sorted row. Filler
     rows are time NEVER, dst = their host, src = seq = kind = 0 and a zero
-    payload; those not extracted ride the tail in sorted order."""
-    s_k1, perm = window_keys(pool, win_start, win_end, H, Kc, ops)
+    payload; those not extracted ride the tail in sorted order. Under
+    islands each shard extracts its own hosts (the JAX package's ``lrow``:
+    a row deferred to another shard stays in the tail), a filler's dst is
+    its shard-local host, and the tail is the shards' tails in turn."""
+    s_k1, perm = window_keys(pool, win_start, win_end, H, Kc, ops, shards)
     return ops.extract_slots(s_k1, perm, pool.time, pool.dst, pool.src,
-                             pool.seq, pool.kind, pool.payload, H, Kc)
+                             pool.seq, pool.kind, pool.payload, H, Kc,
+                             shards)
 
 
 def merge_rows(blocks, capacity: int,
@@ -245,6 +254,33 @@ def merge(tail: Tail, em, capacity: int,
 
 # handler(state, dense, params, win_end, ops) -> kernels.ForwardOut
 MatrixHandler = Callable[..., kernels.ForwardOut]
+
+
+class IslandSpec(NamedTuple):
+    """Per-shard ("island") execution of the window step (the JAX
+    package's ``IslandSpec``): the host axis split into ``num_shards``
+    contiguous blocks, each with its own event pool and dense window;
+    cross-shard emissions ride a bounded exchange of ``exchange_slots``
+    rows a pair of shards a window. On one card the shards are a leading
+    dim (the JAX package's ``island_mode: vmap``). The permuted layout
+    (``use_slot_table``) and optimistic islands are not ported: setting
+    either raises (``ROADMAP.md`` queue A 9)."""
+
+    axis: str
+    num_shards: int
+    exchange_slots: int
+    use_slot_table: bool = False
+    optimistic: bool = False
+
+    def check(self) -> "IslandSpec":
+        for on, what in ((self.use_slot_table,
+                          "the slot table (a rebalanced or min-cut layout)"),
+                         (self.optimistic, "optimistic islands")):
+            if on:
+                raise NotImplementedError(
+                    f"{what} is not ported to shadow_tpu_torch yet "
+                    f"(ROADMAP.md queue A 9)")
+        return self
 
 
 class Simulation:
@@ -363,6 +399,8 @@ class Simulation:
             subs=subs or {},
             obs=obs_mod.ObsBlock.zeros(num_hosts, dev),
             xmit_min=torch.full((), NEVER, dtype=torch.int64, device=dev),
+            exch_deferred_min=torch.full((), NEVER, dtype=torch.int64,
+                                         device=dev),
         ).snapshot()
         self._win_bump = obs_mod.win_bump_vec(
             obs_mod.WIN_WINDOWS, obs_mod.WIN_MATRIX, device=dev
@@ -406,8 +444,7 @@ class Simulation:
         tensors; none is written into."""
         state, ops = self.state, self.ops
         state.now = int(win_start)
-        dense, tail = dense_extract(state.pool, win_start, win_end,
-                                    self.num_hosts, self.K, ops)
+        dense, tail = self._extract(state.pool, win_start, win_end)
         state, exec_t = self._serialize(state, dense.time, matrix=True)
         self.state = state
         fw = self.matrix_handler(state, dense._replace(time=exec_t),
@@ -423,15 +460,33 @@ class Simulation:
         )
         state.host.done_t = cm.done_t
         state.host.seq_next = fw.seq_next
-        # against the clocks after this window's commit, as JAX reads them
-        state.xmit_min = ops.spec_check(fw.time, fw.dst, fw.src, cm.done_t)
-        tot = fw.stats.sum(dim=0)  # received, sent, kept, violations
+        self._check_speculation(state, fw, cm.done_t)
         c = state.counters
-        c.events_committed = c.events_committed + cm.n_valid.sum()
-        c.events_emitted = c.events_emitted + tot[2]
-        c.bulk_contract_violations = c.bulk_contract_violations + tot[3]
+        # received, sent, kept, violations
+        tot = state_mod.tally(fw.stats, c.events_committed)
+        c.events_committed = c.events_committed + state_mod.tally(
+            cm.n_valid, c.events_committed)
+        c.events_emitted = c.events_emitted + tot[..., 2]
+        c.bulk_contract_violations = c.bulk_contract_violations + tot[..., 3]
         c.micro_steps = c.micro_steps + 1
-        state.pool, dropped = merge(tail, fw, state.pool.capacity, ops)
+        self._merge(state, tail, fw, win_start)
+
+    def _extract(self, pool: EventPool, win_start: int, win_end: int):
+        """The matrix path's extraction (``dense_extract``)."""
+        return dense_extract(pool, win_start, win_end, self.num_hosts,
+                             self.K, self.ops)
+
+    def _check_speculation(self, state: SimState, fw, done_t) -> None:
+        """The matrix path's ``xmit_min`` (``spec_check``), against the
+        clocks after this window's commit, as JAX reads them."""
+        state.xmit_min = self.ops.spec_check(fw.time, fw.dst, fw.src,
+                                             done_t)
+
+    def _merge(self, state: SimState, tail: Tail, fw, win_start: int):
+        """The matrix path's merge (``pool_merge``) of the tail and the
+        emissions into the next pool."""
+        state.pool, dropped = merge(tail, fw, state.pool.capacity, self.ops)
+        c = state.counters
         c.pool_overflow_dropped = c.pool_overflow_dropped + dropped
 
     def _serialize(self, state: SimState, t: torch.Tensor, matrix: bool):
@@ -814,8 +869,9 @@ class Simulation:
         return windows, rollbacks
 
     def counters(self) -> dict[str, int]:
+        """Every counter, summed over the shards under islands."""
         c = self.state.counters
-        return {k: int(v) for k, v in sorted(vars(c).items())}
+        return {k: int(v.sum()) for k, v in sorted(vars(c).items())}
 
     def obs_snapshot(self) -> dict:
         return obs_mod.snapshot(self.state)

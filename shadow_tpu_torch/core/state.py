@@ -91,7 +91,8 @@ class EventPool:
 
     @property
     def capacity(self) -> int:
-        return self.time.shape[0]
+        """Rows a pool: under islands, rows a shard's pool ([S, C])."""
+        return self.time.shape[-1]
 
 
 @dataclasses.dataclass
@@ -122,6 +123,17 @@ class Counters:
             f.name: torch.zeros((), dtype=torch.int64, device=device)
             for f in dataclasses.fields(cls)
         })
+
+
+def tally(per_host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``per_host`` ([H, ...]) summed over its hosts for the counter
+    ``like``: one sum on the global engine, where counters are scalars,
+    and one a shard under islands, where ``like`` is a [S] row and shard
+    s holds the hosts s·H/S to (s + 1)·H/S − 1."""
+    if like.dim() == 0:
+        return per_host.sum(dim=0)
+    return per_host.reshape((like.shape[0], -1)
+                            + tuple(per_host.shape[1:])).sum(dim=1)
 
 
 @dataclasses.dataclass
@@ -167,6 +179,18 @@ class SimState:
     # conservative windows leave it NEVER by construction
     xmit_min: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.tensor(simtime.NEVER))
+    # [] int64 NEVER on the global engine; under islands [S]: each
+    # shard's earliest row that missed the bounded exchange (NEVER if
+    # none), and the driver ends the next window at the earliest of them,
+    # so no shard runs past a row in transit
+    exch_deferred_min: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(simtime.NEVER))
+
+    @property
+    def shards(self) -> int:
+        """The islands' shard count: the pool is [S, C] under islands
+        (``parallel/islands.py``), one [C] pool on the global engine."""
+        return self.pool.time.shape[0] if self.pool.time.dim() == 2 else 1
 
     # The loop path's handlers update the state functionally, as the JAX
     # package's do: each helper returns a new SimState and leaves this one

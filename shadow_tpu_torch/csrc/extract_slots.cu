@@ -20,6 +20,14 @@
 // payload; dst for the C tail rows only). A filler's columns are made in
 // registers: time NEVER, dst its host, src = seq = kind = 0, zero payload.
 //
+// Over S shards (window_sort's: S blocks of N/S sorted rows, each with its
+// local run keys in [0, Hl], Hl = H/S) each block places alone: the keys
+// compare as G = s*(Hl + 1) + key, which never ties across a shard's edge,
+// shard s's dense cells are the rows of hosts s*Hl.. (the [H, Kc] window
+// in global host order), its tail rows follow shard s - 1's, and a
+// filler's dst is its local host. S = 1 is the global engine, and runs
+// an instance without the shard arithmetic (kShards false).
+//
 // Bound: bytes. It reads 16 bytes a sorted row (key and perm) and each
 // pool row once, and writes each placed row once. Design: one thread per
 // sorted row. A block stages the keys of its rows and the Kc keys before
@@ -43,13 +51,21 @@ constexpr int kMaxKc = 1024;  // a larger Kc searches device memory
 constexpr long long kNever = 0x7FFFFFFFFFFFFFFFLL;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// the key of sorted row g, -1 before row 0 (keys are >= 0)
+// the key G of sorted row g (its shard's run key, shifted by the
+// shard), -1 before row 0 (keys are >= 0); ns rows a shard
+template <bool kShards>
 __device__ __forceinline__ int key_of(const long long* __restrict__ k1,
-                                      long long g, long long n) {
-  return (g >= 0 && g < n) ? (int)(k1[g] >> kDtBits) : -1;
+                                      long long g, long long n, long long ns,
+                                      int Hl) {
+  if (g < 0 || g >= n) return -1;
+  const int key = (int)(k1[g] >> kDtBits);
+  if constexpr (kShards)
+    return (int)(g / ns) * (Hl + 1) + key;
+  else
+    return key;
 }
 
-template <bool kHalo>
+template <bool kHalo, bool kShards>
 __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
     const long long* __restrict__ k1, const long long* __restrict__ perm,
     const long long* __restrict__ p_t, const int* __restrict__ p_d,
@@ -58,13 +74,15 @@ __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
     long long* __restrict__ o_t, int* __restrict__ o_s,
     int* __restrict__ o_q, int* __restrict__ o_k,
     long long* __restrict__ o_p, int* __restrict__ o_d, long long n, int C,
-    int H, int Kc, int PP) {
+    int H, int Kc, int PP, int S) {
+  const int Hl = kShards ? H / S : H;
+  const long long ns = kShards ? n / S : n, Cl = kShards ? C / S : C;
   // with the halo, skey[j] is the key of row b0 - Kc + j
   __shared__ int skey[kHalo ? kBlock + kMaxKc : 1];
   const long long b0 = (long long)blockIdx.x * kBlock;
   if constexpr (kHalo) {
     for (int j = threadIdx.x; j < kBlock + Kc; j += kBlock)
-      skey[j] = key_of(k1, b0 - Kc + j, n);
+      skey[j] = key_of<kShards>(k1, b0 - Kc + j, n, ns, Hl);
     __syncthreads();
   }
   // the key of row i - Kc + j (j in [0, Kc]) from the halo or the keys
@@ -72,26 +90,29 @@ __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
     if constexpr (kHalo)
       return skey[j + threadIdx.x];
     else
-      return key_of(k1, b0 + threadIdx.x - Kc + j, n);
+      return key_of<kShards>(k1, b0 + threadIdx.x - Kc + j, n, ns, Hl);
   };
   const long long i = b0 + threadIdx.x;
   long long o = -1, r = 0;  // the placed row (-1 past the last) and source
+  const long long HK = (long long)H * Kc;
   if (i < n) {
-    const int key = near(Kc);
-    const long long HK = (long long)H * Kc;
-    const bool dense = key < H && near(0) != key;
+    const int g = near(Kc);
+    const int sh = kShards ? (int)(i / ns) : 0;
+    const int key = g - sh * (Hl + 1);  // the shard's run key
+    const bool dense = key < Hl && near(0) != g;
     if (dense) {  // a dense slot
       int lo = 1, hi = Kc;  // the first of (i - Kc, i] with key, from i - Kc
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (near(mid) < key)
+        if (near(mid) < g)
           lo = mid + 1;
         else
           hi = mid;
       }
-      o = (long long)key * Kc + (Kc - lo);
-    } else {  // HK + the tail index
-      o = HK + i - (long long)(key < H ? key + 1 : H) * Kc;
+      o = ((long long)sh * Hl + key) * Kc + (Kc - lo);
+    } else {  // HK + the shard's tail block + the tail index in it
+      o = HK + sh * Cl + (i - sh * ns) -
+          (long long)(key < Hl ? key + 1 : Hl) * Kc;
     }
     r = perm[i];
     if (r < C) {
@@ -105,7 +126,7 @@ __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
       o_s[o] = 0;
       o_q[o] = 0;
       o_k[o] = 0;
-      if (!dense) o_d[o - HK] = (int)((r - C) / Kc);
+      if (!dense) o_d[o - HK] = (int)((r - C) / Kc - (long long)sh * Hl);
     }
   }
   // every lane runs PP rounds, so the whole warp reaches each shuffle
@@ -120,21 +141,27 @@ __global__ void __launch_bounds__(kBlock) extract_slots_kernel(
 }  // namespace
 
 // a: k1, perm, the pool's time, dst, src, seq, kind and payload; the
-// outputs time, src, seq, kind, payload and the tail's dst; n, C, H, Kc, PP
+// outputs time, src, seq, kind, payload and the tail's dst; n, C, H, Kc,
+// PP, S
 extern "C" int extract_slots(const long long* a, void* stream) {
   const long long n = a[14];
   const int C = (int)a[15], H = (int)a[16], Kc = (int)a[17], PP = (int)a[18];
-  if (Kc < 1 || n != C + (long long)H * Kc) return (int)cudaErrorInvalidValue;
+  const int S = (int)a[19];
+  if (Kc < 1 || S < 1 || H % S || C % S || n != C + (long long)H * Kc)
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const long long blocks = (n + kBlock - 1) / kBlock;
-    auto kernel = Kc <= kMaxKc ? extract_slots_kernel<true>
-                               : extract_slots_kernel<false>;
+    auto kernel = Kc <= kMaxKc
+                      ? (S > 1 ? extract_slots_kernel<true, true>
+                               : extract_slots_kernel<true, false>)
+                      : (S > 1 ? extract_slots_kernel<false, true>
+                               : extract_slots_kernel<false, false>);
     kernel<<<(unsigned)blocks, kBlock, 0, (cudaStream_t)stream>>>(
         (const long long*)a[0], (const long long*)a[1],
         (const long long*)a[2], (const int*)a[3], (const int*)a[4],
         (const int*)a[5], (const int*)a[6], (const long long*)a[7],
         (long long*)a[8], (int*)a[9], (int*)a[10], (int*)a[11],
-        (long long*)a[12], (int*)a[13], n, C, H, Kc, PP);
+        (long long*)a[12], (int*)a[13], n, C, H, Kc, PP, S);
   }
   return (int)cudaGetLastError();
 }

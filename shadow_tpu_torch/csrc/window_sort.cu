@@ -15,6 +15,18 @@
 // two-key sort leaves them: the sorted k1 and the row each place came
 // from (what extract_slots takes).
 //
+// Over S shards (the islands engine, shadow_tpu/parallel/islands.py;
+// S = 1 is the global engine) the pool is S blocks of C/S rows and the
+// hosts S blocks of Hl = H/S: shard s's rows sort apart, after shard
+// s - 1's, each keyed on its shard-local row lrow = dst - s*Hl (the JAX
+// package's _dense_extract with lrow: run_key = lrow where the row is in
+// the window and lrow in [0, Hl), else Hl, so a row deferred to another
+// shard never extracts), its Kc fillers a local host. The sort runs on
+// G = s*(Hl + 1) + run_key in k1's place, so one sort orders every
+// shard; the output is S blocks of C/S + Hl*Kc places, each as the
+// shard's own sort leaves it, s_k1 with the local run key and perm the
+// global row (fillers C + (s*Hl + h)*Kc + j).
+//
 // The fillers are not sorted. With g(row) = run_key + c for run_key < H
 // and H otherwise, where c = 1 only for a row with dt = DT_MAX and
 // k2 > 0 (which sorts after its host's fillers; an in-window row has
@@ -57,7 +69,7 @@ constexpr int kDtBits = 44;
 constexpr long long kDtMax = (1LL << kDtBits) - 1;
 constexpr int kDigits = 16;  // 8-bit digits of the 128-bit key
 constexpr u64 kSign = 1ULL << 63;
-constexpr int kMaxHosts = 1 << 19;  // run_key << 44 stays below 2^63
+constexpr int kMaxHosts = 1 << 19;  // G << 44 stays below 2^63
 
 struct Args {
   const long long* time;
@@ -77,16 +89,25 @@ struct Args {
   u64* lo[2];        // k2 ^ 2^63
   unsigned* val[2];  // the pool row
   long long win_start, win_end, C, tiles;
-  int H, Kc;
+  long long Cl;  // pool rows a shard
+  int H, Kc, S, Hl;
 };
 
-// row i's keys
+// the shard of pool row i (a uniform branch: no division on the global
+// engine)
+__device__ __forceinline__ int shard_of(const Args& a, long long i) {
+  return a.S == 1 ? 0 : (int)(i / a.Cl);
+}
+
+// row i's keys, hi with the shard's G in place of the run key
 __device__ __forceinline__ void build(const Args& a, long long i, u64& hi,
                                       u64& lo) {
   const long long t = a.time[i];
-  const int d = a.dst[i];
-  const bool inwin = t < a.win_end && d >= 0 && d < a.H;
-  const long long run_key = inwin ? d : a.H;
+  const int sh = shard_of(a, i);
+  const long long d = (long long)a.dst[i] - (long long)sh * a.Hl;
+  const bool inwin = t < a.win_end && d >= 0 && d < a.Hl;
+  const long long run_key =
+      (long long)sh * (a.Hl + 1) + (inwin ? d : a.Hl);
   // time - win_start wraps as int64 arithmetic does, then clips
   long long dt = (long long)((u64)t - (u64)a.win_start);
   dt = dt < 0 ? 0 : (dt > kDtMax ? kDtMax : dt);
@@ -114,11 +135,13 @@ __device__ __forceinline__ int digit(u64 hi, u64 lo, int d) {
   return (int)((w >> (8 * (d & 7))) & 0xFF);
 }
 
-// the number of filler blocks before a pool row (see above)
-__device__ __forceinline__ long long groups_before(const Args& a, u64 hi,
-                                                   u64 lo) {
-  const long long key = (long long)(hi >> kDtBits);
-  if (key >= a.H) return a.H;
+// the number of filler blocks of its shard sh before a pool row (see
+// above)
+__device__ __forceinline__ long long groups_before(const Args& a, int sh,
+                                                   u64 hi, u64 lo) {
+  const long long key =
+      (long long)(hi >> kDtBits) - (long long)sh * (a.Hl + 1);
+  if (key >= a.Hl) return a.Hl;
   const bool after = (hi & (u64)kDtMax) == (u64)kDtMax && lo > kSign;
   return key + (after ? 1 : 0);
 }
@@ -197,37 +220,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// one thread a place of the output: pool rows first, then fillers
+// one thread a place of the output: pool rows first, then fillers; shard
+// sh's C/S sorted rows are places sh*C/S on (G orders the shards), and
+// its output block starts at sh*(C/S + Hl*Kc)
 __global__ void __launch_bounds__(kThreads)
     window_place_kernel(Args a) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long n = a.C + (long long)a.H * a.Kc;
   if (i >= n) return;
   const int e = a.plan[kDigits];
+  const long long ns = a.Cl + (long long)a.Hl * a.Kc;
   if (i < a.C) {
     u64 hi, lo;
     unsigned v;
     key_at(a, e, i, hi, lo, v);
-    const long long o = i + (long long)a.Kc * groups_before(a, hi, lo);
-    a.s_k1[o] = (long long)hi;
+    const int sh = shard_of(a, i);
+    const long long o = (long long)sh * ns + (i - sh * a.Cl) +
+                        (long long)a.Kc * groups_before(a, sh, hi, lo);
+    a.s_k1[o] = (long long)(hi - ((u64)sh * (a.Hl + 1) << kDtBits));
     a.perm[o] = v;
     return;
   }
   const long long f = i - a.C;
-  const long long h = f / a.Kc, j = f - h * a.Kc;
-  // P(h): the first sorted place whose row has g > h
-  long long lo_p = 0, hi_p = a.C;
+  const long long gh = f / a.Kc, j = f - gh * a.Kc;
+  const int sh = a.S == 1 ? 0 : (int)(gh / a.Hl);
+  const long long h = gh - (long long)sh * a.Hl;
+  // P(h): the first of the shard's sorted places whose row has g > h
+  long long lo_p = sh * a.Cl, hi_p = (sh + 1) * a.Cl;
   while (lo_p < hi_p) {
     const long long mid = (lo_p + hi_p) >> 1;
     u64 khi, klo;
     unsigned v;
     key_at(a, e, mid, khi, klo, v);
-    if (groups_before(a, khi, klo) > h)
+    if (groups_before(a, sh, khi, klo) > h)
       hi_p = mid;
     else
       lo_p = mid + 1;
   }
-  const long long o = lo_p + h * a.Kc + j;
+  const long long o = (long long)sh * ns + (lo_p - sh * a.Cl) + h * a.Kc + j;
   a.s_k1[o] = (long long)(((u64)h << kDtBits) | (u64)kDtMax);
   a.perm[o] = i;
 }
@@ -264,11 +294,12 @@ extern "C" long long window_sort_scratch(long long C) {
 }
 
 // a: time, dst, src, seq, s_k1, perm, scratch, scratch_bytes, C, H, Kc,
-// win_start, win_end (kernels.window_sort packs them in this order)
+// win_start, win_end, S (kernels.window_sort packs them in this order)
 extern "C" int window_sort(const long long* a, void* stream) {
   const long long C = a[8];
-  const int H = (int)a[9], Kc = (int)a[10];
-  if (C < 1 || C > radix::kMaxRows || H < 1 || H >= kMaxHosts || Kc < 1 ||
+  const int H = (int)a[9], Kc = (int)a[10], S = (int)a[13];
+  if (C < 1 || C > radix::kMaxRows || H < 1 || Kc < 1 || S < 1 ||
+      H % S || C % S || (long long)H + S - 1 >= kMaxHosts ||
       a[7] < layout(C).end)
     return (int)cudaErrorInvalidValue;
   const Layout L = layout(C);
@@ -297,6 +328,9 @@ extern "C" int window_sort(const long long* a, void* stream) {
   k.tiles = radix::tiles(C);
   k.H = H;
   k.Kc = Kc;
+  k.S = S;
+  k.Hl = H / S;
+  k.Cl = C / S;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaMemsetAsync(s, 0, L.zero_end, st);
   window_count_kernel<<<(unsigned)k.tiles, kThreads, 0, st>>>(k);

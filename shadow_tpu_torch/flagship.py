@@ -24,17 +24,17 @@ def build_phold_flagship(
     K: int | None = None,
     seed: int = 42,
     num_shards: int = 1,
+    island_mode: str = "vmap",
+    exchange_slots: int = 0,
+    placement: str = "block",
     device=None,
 ):
     """``device=None`` means the card; pass ``device="cpu"`` for the CPU.
-    ``num_shards > 1`` (islands) is not ported yet and raises."""
+    ``num_shards > 1`` builds the islands engine (``parallel/islands.py``)
+    with the JAX flagship's X, max(64, Hl·msgload // S), unless
+    ``exchange_slots`` sets it."""
     from shadow_tpu_torch.sim import build_simulation
 
-    if num_shards != 1:
-        raise NotImplementedError(
-            "islands (num_shards > 1) are not ported to shadow_tpu_torch "
-            "yet (ROADMAP.md queue A 9)"
-        )
     if runtime_s is None:
         runtime_s = max(stop_s - 2, 1)
     if event_capacity is None:
@@ -45,6 +45,19 @@ def build_phold_flagship(
         # per-host wave occupancy is ~Poisson(msgload); msgload + 16 keeps
         # a straggler host's extra window pass improbable
         K = msgload + 16
+    island_exp = {}
+    if num_shards > 1:
+        if exchange_slots <= 0:
+            # one wave's emissions of a shard, spread over the S shards;
+            # misses defer safely under the window-end clamp
+            hl = num_hosts // num_shards
+            exchange_slots = max(64, hl * msgload // num_shards)
+        island_exp = {
+            "num_shards": num_shards,
+            "island_mode": island_mode,
+            "exchange_slots": exchange_slots,
+            "placement": placement,
+        }
     return build_simulation(
         {
             "general": {"stop_time": stop_s, "seed": seed},
@@ -52,6 +65,7 @@ def build_phold_flagship(
             "experimental": {
                 "event_capacity": event_capacity,
                 "events_per_host_per_window": K,
+                **island_exp,
                 "outbox_slots": K,
                 "inbox_slots": 4,
             },

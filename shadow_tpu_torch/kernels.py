@@ -1,7 +1,7 @@
 """The window step's hand-written CUDA kernels, their plain PyTorch
 versions, and the build and ctypes binding.
 
-Twenty-three kernels carry the window step on the card (sources under
+Twenty-four kernels carry the window step on the card (sources under
 ``csrc/``, one shared library each). Every window of both paths begins
 and ends with two radix sorts:
 
@@ -100,6 +100,17 @@ more in place of the NIC's send ring:
 * ``qdisc_dequeue`` (K23): ``DeviceQueueDiscipline.dequeue`` — the pop
   (PIFO's slot 0 and row shift, Eiffel's circular bucket scan) under no
   hook or the CoDel hook, whose control law it shares with K6.
+
+The islands engine (``parallel/islands.py``) runs the matrix path's
+kernels over S shards, ``window_sort`` and ``extract_slots`` with the
+shard dim (each shard's window on its shard-local rows, in the same
+launches), and one more in place of ``pool_merge``:
+
+* ``island_route`` (K24): the merge of
+  ``shadow_tpu/core/engine.py:_island_route`` over every shard at once —
+  the bounded exchange of cross-shard rows, written straight into their
+  destination shard's pool tail, and each shard's remainder in (dt,
+  group, input) order up to its capacity.
 
 Each wrapper runs its plain version for tensors on the CPU and launches
 its kernel for tensors on the card; there is no fallback from one to the
@@ -273,18 +284,20 @@ LINK_SEND = Kernel(
 NIC_TX = Kernel("nic_tx", (ctypes.c_char_p, _P))
 NIC_RX = Kernel("nic_rx", (ctypes.c_char_p, _P))
 NIC_GATE = Kernel("nic_gate", (ctypes.c_char_p, _P))
+ISLAND_ROUTE = Kernel("island_route", (ctypes.c_char_p, _P))
 # the merge's blocks: at most MERGE_BLOCKS, ten values each
 MERGE_BLOCKS = 4
-_PACK = {"window_sort": struct.Struct("<13q"),
+_PACK = {"window_sort": struct.Struct("<14q"),
          "pool_merge": struct.Struct(f"<{12 + 10 * MERGE_BLOCKS}q"),
-         "extract_slots": struct.Struct("<19q"),
+         "extract_slots": struct.Struct("<20q"),
          "nic_tx": struct.Struct("<30q"), "nic_rx": struct.Struct("<19q"),
-         "nic_gate": struct.Struct("<18q")}
+         "nic_gate": struct.Struct("<18q"),
+         "island_route": struct.Struct("<29q")}
 KERNELS = (EXTRACT_SLOTS, PHOLD_FORWARD, AUDIT_COMMIT, LOOP_SELECT,
            LOOP_ROUTE, CODEL_DEQUEUE, RING_APPEND, TCP_DEMUX, TCP_ACK,
            TCP_REORDER, TCP_OUT, SPEC_CHECK, NIC_REFILL, SEND_DEQUEUE,
            LINK_SEND, NIC_TX, NIC_RX, NIC_GATE, WINDOW_SORT, POOL_MERGE,
-           CPU_SERIALIZE, QDISC_ENQUEUE, QDISC_DEQUEUE)
+           CPU_SERIALIZE, QDISC_ENQUEUE, QDISC_DEQUEUE, ISLAND_ROUTE)
 
 
 def reset_launches() -> None:
@@ -388,16 +401,17 @@ def _lib(k: Kernel):
 _scratch: dict = {}
 
 
-def _scratch_bytes(k: Kernel, n: int) -> int:
-    """The scratch bytes the kernel ``k`` needs for ``n`` rows, from its
+def _scratch_bytes(k: Kernel, *n: int) -> int:
+    """The scratch bytes the kernel ``k`` needs for sizes ``n`` (rows, or
+    ``island_route``'s shards, candidates and pool rows), from its
     library's ``<name>_scratch`` (the C entry refuses less)."""
     b = _scratch.get((k.name, n))
     if b is None:
         _lib(k)
         fn = getattr(_libs[k.name], f"{k.name}_scratch")
-        fn.argtypes = [_L]
+        fn.argtypes = [_L] * len(n)
         fn.restype = _L
-        b = _scratch[(k.name, n)] = fn(n)
+        b = _scratch[(k.name, n)] = fn(*n)
     return b
 
 
@@ -445,6 +459,14 @@ def _check(t: torch.Tensor, dtype, shape, name: str) -> int:
     return t.data_ptr()
 
 
+def _flat(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` as one dim, a view: a copy would be freed before the launch
+    reads it."""
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    return t.view(-1)
+
+
 def _stream(t: torch.Tensor) -> int:
     """The raw handle of the current stream of ``t``'s card (what
     ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
@@ -456,51 +478,87 @@ def _stream(t: torch.Tensor) -> int:
 # K19 window_sort
 # ---------------------------------------------------------------------------
 
-# the hosts the k1 key holds: run_key << DT_BITS stays below 2^63
+# the run keys the sort key holds: (shard·(Hl + 1) + run_key) << DT_BITS
+# stays below 2^63
 WINDOW_MAX_HOSTS = 1 << (63 - DT_BITS)
 
 
-def _window_hosts(H: int) -> None:
-    if not 0 < H < WINDOW_MAX_HOSTS:
+def _window_hosts(H: int, shards: int = 1) -> None:
+    if shards < 1 or H % shards:
+        raise ValueError(f"window_sort: {H} hosts do not split into "
+                         f"{shards} shards")
+    if not 0 < H + shards - 1 < WINDOW_MAX_HOSTS:
         raise ValueError(f"window_sort: the k1 key holds run keys below "
                          f"{WINDOW_MAX_HOSTS} (run_key << {DT_BITS} in "
-                         f"int64), got H={H}")
+                         f"int64), got H={H} over {shards} shards")
+
+
+def _window_rows(time, dst, win_start: int, win_end: int, H: int,
+                 shards: int):
+    """(k1, G) of the pool rows: k1 = run_key << 44 | dt with the
+    shard-local run key, and G = shard·(Hl + 1) + run_key, the key the
+    rows sort by before dt. A row of shard s (the s-th of ``shards``
+    equal blocks of the pool) has the local row dst − s·Hl; run_key is
+    that row where it lies in [0, Hl) and the row is in the window, else
+    Hl (the JAX package's ``_dense_extract`` with ``lrow``)."""
+    n = time.shape[0]
+    Hl = H // shards
+    shard = torch.arange(shards, dtype=torch.int64,
+                         device=time.device).repeat_interleave(n // shards)
+    lrow = dst.to(torch.int64) - shard * Hl
+    inwin = (time < win_end) & (lrow >= 0) & (lrow < Hl)
+    run_key = torch.where(inwin, lrow, Hl)
+    dt = (time - win_start).clamp(0, DT_MAX)
+    return (run_key << DT_BITS) | dt, shard * (Hl + 1) + run_key
 
 
 def window_sort_keys(time, dst, src, seq, win_start: int, win_end: int,
-                     H: int, Kc: int):
+                     H: int, Kc: int, shards: int = 1):
     """(k1, k2) [N = C + H·Kc] int64: the keys of the C pool rows, then of
-    the H·Kc filler rows, host-major."""
-    _window_hosts(H)
+    the H·Kc filler rows, host-major. Over ``shards`` shards (the pool's
+    C rows in equal blocks, the hosts too), k1's run key is
+    shard-local."""
+    _window_hosts(H, shards)
+    time, dst = time.reshape(-1), dst.reshape(-1)
     C = time.shape[0]
     N = C + H * Kc
     dev = time.device
-    inwin = (time < win_end) & (dst >= 0) & (dst < H)
-    run_key = torch.where(inwin, dst.to(torch.int64), H)
-    dt = (time - win_start).clamp(0, DT_MAX)
     k1 = torch.empty(N, dtype=torch.int64, device=dev)
-    k1[:C] = (run_key << DT_BITS) | dt
-    hosts = torch.arange(H, dtype=torch.int64, device=dev)
+    k1[:C] = _window_rows(time, dst, win_start, win_end, H, shards)[0]
+    hosts = torch.arange(H // shards, dtype=torch.int64,
+                         device=dev).repeat(shards)
     k1[C:] = ((hosts << DT_BITS) | DT_MAX).repeat_interleave(Kc)
     k2 = torch.zeros(N, dtype=torch.int64, device=dev)
-    k2[:C] = (src.to(torch.int64) << 32) | (seq.to(torch.int64) & rng.M32)
+    k2[:C] = ((src.reshape(-1).to(torch.int64) << 32)
+              | (seq.reshape(-1).to(torch.int64) & rng.M32))
     return k1, k2
 
 
 def window_sort_plain(time, dst, src, seq, win_start: int, win_end: int,
-                      H: int, Kc: int):
+                      H: int, Kc: int, shards: int = 1):
     """Plain version: the keys (``window_sort_keys``), then a stable sort
-    by k2 and a stable sort by k1, which is the JAX package's
-    ``lax.sort(num_keys=2, is_stable=True)``."""
+    by k2 and a stable sort by (shard, k1), which is the JAX package's
+    ``lax.sort(num_keys=2, is_stable=True)``, shard by shard."""
     k1, k2 = window_sort_keys(time, dst, src, seq, win_start, win_end, H,
-                              Kc)
+                              Kc, shards)
+    order = k1
+    if shards > 1:
+        C = time.numel()
+        Hl = H // shards
+        g = torch.empty_like(k1)
+        g[:C] = _window_rows(time.reshape(-1), dst.reshape(-1), win_start,
+                             win_end, H, shards)[1]
+        gh = torch.arange(H, dtype=torch.int64, device=k1.device)
+        g[C:] = (gh + gh // Hl).repeat_interleave(Kc)
+        order = (g << DT_BITS) | (k1 & DT_MAX)
     p2 = torch.sort(k2, stable=True).indices
-    s_k1, p1 = torch.sort(k1[p2], stable=True)
-    return s_k1, p2[p1]
+    p1 = torch.sort(order[p2], stable=True).indices
+    perm = p2[p1]
+    return k1[perm], perm
 
 
 def window_sort(time, dst, src, seq, win_start: int, win_end: int, H: int,
-                Kc: int):
+                Kc: int, shards: int = 1):
     """The window's first sort (``engine.window_keys``): from the pool's
     ``time``, ``dst``, ``src`` and ``seq`` columns (C rows), the keys
     k1 = run_key << 44 | clip(time - win_start, 0, DT_MAX) and
@@ -508,16 +566,27 @@ def window_sort(time, dst, src, seq, win_start: int, win_end: int, H: int,
     Kc rows k1 = h << 44 | DT_MAX, k2 = 0, after the pool rows), sorted by
     (k1, k2, row). Returns (s_k1, perm) [N = C + H·Kc] int64: the sorted k1
     and the row each place came from. On the card: one C entry, its keys
-    built on the card, only the pool rows sorted."""
+    built on the card, only the pool rows sorted.
+
+    Over ``shards`` islands (``parallel/islands.py``) the pool's C rows
+    are ``shards`` equal blocks and the hosts too (Hl = H / shards a
+    shard): each shard's rows sort apart, shard after shard, each by its
+    own k1 with the local run key dst − shard·Hl (Hl where that is not
+    in [0, Hl): a row deferred to another shard never extracts), its
+    fillers local hosts; ``perm`` counts the fillers by global host.
+    ``shards=1`` is the global engine's sort."""
     args = (time, dst, src, seq)
     if not _on_card(*args):
-        return window_sort_plain(*args, win_start, win_end, H, Kc)
-    _window_hosts(H)
-    C = time.shape[0]
-    ins = (_check(time, torch.int64, (C,), "time"),
-           _check(dst, torch.int32, (C,), "dst"),
-           _check(src, torch.int32, (C,), "src"),
-           _check(seq, torch.int32, (C,), "seq"))
+        return window_sort_plain(*args, win_start, win_end, H, Kc, shards)
+    _window_hosts(H, shards)
+    C = time.numel()
+    if C % shards:
+        raise ValueError(f"window_sort: {C} pool rows do not split into "
+                         f"{shards} shards")
+    ins = (_check(_flat(time, "time"), torch.int64, (C,), "time"),
+           _check(_flat(dst, "dst"), torch.int32, (C,), "dst"),
+           _check(_flat(src, "src"), torch.int32, (C,), "src"),
+           _check(_flat(seq, "seq"), torch.int32, (C,), "seq"))
     N = C + H * Kc
     out = torch.empty(2 * N, dtype=torch.int64, device=time.device)
     scratch = torch.empty(_scratch_bytes(WINDOW_SORT, C), dtype=torch.uint8,
@@ -525,7 +594,7 @@ def window_sort(time, dst, src, seq, win_start: int, win_end: int, H: int,
     base = out.data_ptr()
     _launch(WINDOW_SORT, _PACK["window_sort"].pack(
         *ins, base, base + 8 * N, scratch.data_ptr(), scratch.numel(), C, H,
-        Kc, int(win_start), int(win_end)), _stream(time))
+        Kc, int(win_start), int(win_end), shards), _stream(time))
     s_k1, perm = out.split(N)
     return s_k1, perm
 
@@ -681,41 +750,52 @@ class Extracted(NamedTuple):
     tail: Tail
 
 
-def dense_slots(s_k1: torch.Tensor, H: int, Kc: int) -> torch.Tensor:
+def dense_slots(s_k1: torch.Tensor, H: int, Kc: int,
+                shards: int = 1) -> torch.Tensor:
     """[N] int32 dense slot of each sorted window row: key * Kc + rank for
     the first Kc rows of each host run, N for every other row (the JAX
-    package's boundary + cummax rank scan)."""
+    package's boundary + cummax rank scan). Over ``shards`` shards the
+    rows are ``shards`` equal runs, each scanned alone, and shard s's
+    slots start at s·Hl·Kc."""
     N = s_k1.shape[0]
-    s_key = s_k1 >> DT_BITS
-    iota = torch.arange(N, dtype=torch.int64, device=s_k1.device)
-    boundary = torch.ones(N, dtype=torch.bool, device=s_k1.device)
-    boundary[1:] = s_key[1:] != s_key[:-1]
-    run_start = torch.cummax(torch.where(boundary, iota, -1), dim=0).values
+    S = shards
+    Hl = H // S
+    n = N // S
+    s_key = (s_k1 >> DT_BITS).view(S, n)
+    iota = torch.arange(n, dtype=torch.int64, device=s_k1.device)
+    boundary = torch.ones((S, n), dtype=torch.bool, device=s_k1.device)
+    boundary[:, 1:] = s_key[:, 1:] != s_key[:, :-1]
+    run_start = torch.cummax(torch.where(boundary, iota, -1), dim=1).values
     rank = iota - run_start
-    extract = (s_key < H) & (rank < Kc)
-    return torch.where(extract, s_key * Kc + rank, N).to(torch.int32)
+    extract = (s_key < Hl) & (rank < Kc)
+    base = torch.arange(S, dtype=torch.int64,
+                        device=s_k1.device)[:, None] * (Hl * Kc)
+    return torch.where(extract, base + s_key * Kc + rank,
+                       N).reshape(-1).to(torch.int32)
 
 
 def place_rows(slot, perm, time, dst, src, seq, kind, payload, H: int,
-               Kc: int) -> Extracted:
+               Kc: int, shards: int = 1) -> Extracted:
     """The JAX package's second sort: every sorted row, pool row or
     filler, gathered in stable order of its dense slot; the first H·Kc
     land as the dense window, the rest are the tail. Filler rows are time
-    NEVER, dst = their host, src = seq = kind = 0 and a zero payload."""
+    NEVER, dst = their host (shard-local over ``shards`` shards), src =
+    seq = kind = 0 and a zero payload."""
     HK = H * Kc
     dev = time.device
     rows = perm[torch.sort(slot, stable=True).indices]
 
     def col(pool_col, filler):
-        return torch.cat([pool_col, filler])[rows]
+        return torch.cat([pool_col.reshape((-1,) + filler.shape[1:]),
+                          filler])[rows]
 
     z32 = torch.zeros(HK, dtype=torch.int32, device=dev)
-    fill_dst = torch.arange(H, dtype=torch.int32,
-                            device=dev).repeat_interleave(Kc)
+    fill_dst = torch.arange(H // shards, dtype=torch.int32,
+                            device=dev).repeat(shards).repeat_interleave(Kc)
     o_t = col(time, torch.full((HK,), NEVER, dtype=torch.int64, device=dev))
     o_s, o_q, o_k = col(src, z32), col(seq, z32), col(kind, z32)
     o_d = col(dst, fill_dst)
-    PP = payload.shape[1]
+    PP = payload.shape[-1]
     o_p = col(payload, torch.zeros((HK, PP), dtype=torch.int64, device=dev))
     return Extracted(
         DenseWindow(time=o_t[:HK].view(H, Kc), src=o_s[:HK].view(H, Kc),
@@ -727,26 +807,34 @@ def place_rows(slot, perm, time, dst, src, seq, kind, payload, H: int,
 
 
 def extract_slots_plain(s_k1, perm, time, dst, src, seq, kind, payload,
-                        H: int, Kc: int) -> Extracted:
+                        H: int, Kc: int, shards: int = 1) -> Extracted:
     """Plain version, the JAX package's form: the rank scan, then the
     stable sort by slot and the gathers."""
-    return place_rows(dense_slots(s_k1, H, Kc), perm, time, dst, src, seq,
-                      kind, payload, H, Kc)
+    return place_rows(dense_slots(s_k1, H, Kc, shards), perm, time, dst,
+                      src, seq, kind, payload, H, Kc, shards)
 
 
 def extract_slots(s_k1, perm, time, dst, src, seq, kind, payload, H: int,
-                  Kc: int) -> Extracted:
+                  Kc: int, shards: int = 1) -> Extracted:
     """Place every row of the window's first sort: ``s_k1`` and ``perm``
     from ``window_sort`` (N = C + H·Kc sorted k1 keys and the row
     each came from: the C pool rows, whose columns follow, then H·Kc
     fillers, host-major). Returns the dense window and the tail, as the
-    JAX package's rank scan and second sort leave them."""
+    JAX package's rank scan and second sort leave them. Over ``shards``
+    shards (``window_sort``'s), each shard's N / shards sorted rows place
+    alone: the dense window is [H, Kc] in global host order (shard s's
+    hosts are rows s·Hl to (s + 1)·Hl − 1), the tail is shard s's
+    C / shards tail rows after shard s − 1's, and a filler's dst is its
+    shard-local host."""
     args = (s_k1, perm, time, dst, src, seq, kind, payload)
     if not _on_card(*args):
-        return extract_slots_plain(*args, H, Kc)
-    C = time.shape[0]
+        return extract_slots_plain(*args, H, Kc, shards)
+    C = time.numel()
     PP = payload.shape[-1]
     N = C + H * Kc
+    if shards < 1 or H % shards or C % shards:
+        raise ValueError(f"extract_slots: {H} hosts and {C} pool rows do "
+                         f"not split into {shards} shards")
     # the kernel places row i by the keys and gathers pool rows by perm,
     # so every input must have its type and length
     ins = []
@@ -770,7 +858,7 @@ def extract_slots(s_k1, perm, time, dst, src, seq, kind, payload, H: int,
     b32 = base + 8 * n64
     _launch(EXTRACT_SLOTS, _PACK["extract_slots"].pack(
         *ins, base, b32, b32 + 4 * N, b32 + 8 * N, base + 8 * N,
-        b32 + 12 * N, N, C, H, Kc, PP), _stream(time))
+        b32 + 12 * N, N, C, H, Kc, PP, shards), _stream(time))
     return _extract_views(buf, C, H, Kc, PP)
 
 
@@ -3063,6 +3151,177 @@ def qdisc_dequeue(fields, now, want, *, spec: QdiscSpec) -> QdiscDequeueOut:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K24 island_route
+# ---------------------------------------------------------------------------
+
+
+class Routed(NamedTuple):
+    """Each shard's next pool after the islands merge, [S, C] each
+    (``payload`` [S, C, PP]), and per shard ``stats[:, i]`` for i =
+    (rows dropped past the pool, rows sent, rows deferred, the earliest
+    deferred row's time or NEVER), [S, 4] int64."""
+
+    time: torch.Tensor
+    dst: torch.Tensor
+    src: torch.Tensor
+    seq: torch.Tensor
+    kind: torch.Tensor
+    payload: torch.Tensor
+    stats: torch.Tensor
+
+
+def _route_candidates(blocks, S: int):
+    """The candidates of each shard, [S, M]: each block's rows split into
+    S equal runs, the blocks' runs side by side (payload [S, M, PP])."""
+    names = ("time", "dst", "src", "seq", "kind")
+    cols = [torch.cat([getattr(b, n).reshape(S, -1) for b in blocks], dim=1)
+            for n in names]
+    PP = blocks[0].payload.shape[-1]
+    cols.append(torch.cat([b.payload.reshape(S, -1, PP) for b in blocks],
+                          dim=1))
+    return cols
+
+
+def island_route_plain(tail, em, *, shards: int, exchange_slots: int,
+                       num_hosts: int, capacity: int,
+                       win_start: int) -> Routed:
+    """Plain version: ``shadow_tpu/core/engine.py:_island_route`` op for
+    op, batched over the shard dim (the JAX package's vmap), its
+    ``all_to_all`` a transpose of the [S, S, X] exchange blocks."""
+    S, X = shards, exchange_slots
+    SX = S * X
+    C = capacity
+    if C <= SX:
+        raise ValueError(
+            f"per-shard pool capacity {C} must exceed exchange block "
+            f"{SX} (= num_shards x exchange_slots)")
+    Hl = num_hosts // S
+    m_t, m_d, m_s, m_q, m_k, m_p = _route_candidates((tail, em), S)
+    dev = m_t.device
+    M = m_t.shape[1]
+    my = torch.arange(S, dtype=torch.int64, device=dev)[:, None]
+    real = m_t != NEVER
+
+    def shard_of(d):
+        return torch.div(d, Hl, rounding_mode="floor").clamp(
+            0, S - 1).to(torch.int64)
+
+    foreign = real & (shard_of(m_d) != my)
+    group = torch.where(foreign, shard_of(m_d), S)
+    dt = (m_t - win_start).clamp(0, DT_MAX)
+    gf = torch.arange(S, dtype=torch.int64, device=dev).repeat_interleave(X)
+    k1 = torch.cat([(group << DT_BITS) | dt,
+                    ((gf << DT_BITS) | DT_MAX).expand(S, SX)], dim=1)
+    t_all = torch.cat([m_t, torch.full((S, SX), NEVER, dtype=torch.int64,
+                                       device=dev)], dim=1)
+    s_k1, order1 = torch.sort(k1, dim=1, stable=True)
+    s_group = s_k1 >> DT_BITS
+    N = M + SX
+    iota = torch.arange(N, dtype=torch.int64, device=dev)
+    boundary = torch.ones((S, N), dtype=torch.bool, device=dev)
+    boundary[:, 1:] = s_group[:, 1:] != s_group[:, :-1]
+    run_start = torch.cummax(torch.where(boundary, iota, -1), dim=1).values
+    rank = iota - run_start
+    extract = (s_group < S) & (rank < X)
+    slot = torch.where(extract, s_group * X + rank, SX)
+    k2 = (slot << DT_BITS) | (s_k1 & DT_MAX)
+    order = order1.gather(1, torch.sort(k2, dim=1, stable=True).indices)
+    sent = (extract & (t_all.gather(1, order1) != NEVER)).sum(dim=1)
+
+    def col(c, fill):
+        full = torch.cat([c, torch.zeros((S, SX) + c.shape[2:],
+                                         dtype=c.dtype, device=dev)], dim=1)
+        if fill is not None:
+            full[:, M:] = fill
+        idx = order.view((S, N) + (1,) * (c.dim() - 2)).expand(
+            (S, N) + c.shape[2:])
+        return full.gather(1, idx)
+
+    cols = [col(m_t, NEVER), col(m_d, None), col(m_s, None),
+            col(m_q, None), col(m_k, None), col(m_p, None)]
+    C_keep = C - SX
+    out = []
+    for c in cols:
+        # the all_to_all: shard g receives row g of every shard's [S, X]
+        # block, sources in shard order
+        recv = c[:, :SX].reshape((S, S, X) + c.shape[2:]).transpose(0, 1)
+        out.append(torch.cat([c[:, SX:SX + C_keep],
+                              recv.reshape((S, SX) + c.shape[2:])], dim=1))
+    rem_t, rem_d = cols[0][:, SX:], cols[1][:, SX:]
+    dropped = (rem_t[:, C_keep:] != NEVER).sum(dim=1)
+    kt = rem_t[:, :C_keep]
+    def_mask = (kt != NEVER) & (shard_of(rem_d[:, :C_keep]) != my)
+    stats = torch.stack([
+        dropped, sent, def_mask.sum(dim=1),
+        torch.where(def_mask, kt, NEVER).min(dim=1).values,
+    ], dim=1).to(torch.int64)
+    return Routed(*out, stats=stats)
+
+
+def island_route(tail, em, *, shards: int, exchange_slots: int,
+                 num_hosts: int, capacity: int, win_start: int) -> Routed:
+    """The islands merge (``_island_route`` of the JAX package under vmap
+    over ``shards`` shards on one card): each shard's candidates are its
+    run of the ``tail`` block's rows, then its run of the ``em`` block's
+    (each block's rows in ``shards`` equal runs; ``time``, ``dst``,
+    ``src``, ``seq``, ``kind`` and a packed ``payload``, read where they
+    lie); the first ``exchange_slots`` rows a foreign shard, by (dt,
+    input order), go to that shard's pool tail, the rest stay in (dt,
+    group, input order) up to ``capacity − shards·exchange_slots``. On the
+    card: one C entry, every shard at once."""
+    ts = (tail.time, tail.dst, tail.src, tail.seq, tail.kind, tail.payload,
+          em.time, em.dst, em.src, em.seq, em.kind, em.payload)
+    if not _on_card(*ts):
+        return island_route_plain(
+            tail, em, shards=shards, exchange_slots=exchange_slots,
+            num_hosts=num_hosts, capacity=capacity, win_start=win_start)
+    S, X, C = int(shards), int(exchange_slots), int(capacity)
+    if not 0 < S < 256 or X < 1 or num_hosts % S or C <= S * X:
+        raise ValueError(
+            f"island_route: {S} shards (1 to 255) of {num_hosts} hosts, "
+            f"X={X} rows a pair and a pool of {C} rows a shard, which must "
+            f"exceed the exchange block {S * X}")
+    PP = tail.payload.shape[-1]
+    packed = []
+    for name, b in (("tail", tail), ("em", em)):
+        n = b.time.numel()
+        if n % S:
+            raise ValueError(f"island_route: the {name} block's {n} rows do "
+                             f"not split into {S} shards")
+        packed += [
+            n // S, _check(_flat(b.time, f"{name} time"), torch.int64,
+                           (n,), f"{name} time"),
+            *(_check(_flat(getattr(b, c), f"{name} {c}"), torch.int32,
+                     (n,), f"{name} {c}")
+              for c in ("dst", "src", "seq", "kind")),
+            _check(_flat(b.payload, f"{name} payload"), torch.int64,
+                   (n * PP,), f"{name} payload")]
+    M = packed[0] + packed[7]
+    if M < C:
+        raise ValueError(f"island_route: {M} candidates a shard for a pool "
+                         f"of {C}")
+    dev = tail.time.device
+    # one allocation: time, payload and stats as int64, then dst, src,
+    # seq and kind as int32
+    SC = S * C
+    buf = torch.empty(SC * (1 + PP) + 4 * S + 2 * SC, dtype=torch.int64,
+                      device=dev)
+    scratch = torch.empty(_scratch_bytes(ISLAND_ROUTE, S, M, C),
+                          dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    b32 = base + 8 * (SC * (1 + PP) + 4 * S)
+    _launch(ISLAND_ROUTE, _PACK["island_route"].pack(
+        S, X, num_hosts // S, PP, C, int(win_start), *packed,
+        base, b32, b32 + 4 * SC, b32 + 8 * SC, b32 + 12 * SC, base + 8 * SC,
+        base + 8 * SC * (1 + PP), scratch.data_ptr(), scratch.numel()),
+        _stream(tail.time))
+    t, p, st, i32 = buf.split_with_sizes([SC, SC * PP, 4 * S, 2 * SC])
+    d, sr, q, k = (x.view(S, C) for x in i32.view(torch.int32).split(SC))
+    return Routed(t.view(S, C), d, sr, q, k, p.view(S, C, PP),
+                  st.view(S, 4))
+
+
 class WindowOps(NamedTuple):
     """The window-step functions the engine and the network stack call."""
 
@@ -3089,6 +3348,7 @@ class WindowOps(NamedTuple):
     cpu_serialize: object
     qdisc_enqueue: object
     qdisc_dequeue: object
+    island_route: object
 
 
 # the wrappers: the kernels on the card, the plain versions on the CPU
@@ -3097,7 +3357,8 @@ KERNEL_OPS = WindowOps(window_sort, pool_merge, extract_slots,
                        loop_select, loop_route, codel_dequeue, ring_append,
                        tcp_demux, tcp_ack, tcp_reorder, tcp_out, spec_check,
                        nic_refill, send_dequeue, link_send, nic_tx, nic_rx,
-                       nic_gate, cpu_serialize, qdisc_enqueue, qdisc_dequeue)
+                       nic_gate, cpu_serialize, qdisc_enqueue, qdisc_dequeue,
+                       island_route)
 # the plain versions on any device (the on-card comparison run)
 PLAIN_OPS = WindowOps(window_sort_plain, pool_merge_plain,
                       extract_slots_plain, phold_forward_plain,
@@ -3107,4 +3368,5 @@ PLAIN_OPS = WindowOps(window_sort_plain, pool_merge_plain,
                       tcp_out_plain, spec_check_plain, nic_refill_plain,
                       send_dequeue_plain, link_send_plain, nic_tx_plain,
                       nic_rx_plain, nic_gate_plain, cpu_serialize_plain,
-                      qdisc_enqueue_plain, qdisc_dequeue_plain)
+                      qdisc_enqueue_plain, qdisc_dequeue_plain,
+                      island_route_plain)

@@ -32,6 +32,7 @@ from shadow_tpu_torch.core.state import (
     KIND_APP_TIMER,
     NetParams,
     SimState,
+    tally,
 )
 from shadow_tpu_torch.net import link
 from shadow_tpu_torch.net import packet as pkt
@@ -172,11 +173,12 @@ class PholdApp:
             "received": sub["received"] + fw.stats[:, 0],
             "forwarded": sub["forwarded"] + fw.stats[:, 1],
         }
-        sent = fw.stats[:, 1].sum()
         c = state.counters
+        # one sum, or one a shard under islands
+        sent = tally(fw.stats[:, 1], c.packets_sent)
         c.packets_sent = c.packets_sent + sent
         c.packets_dropped_loss = (c.packets_dropped_loss + sent
-                                  - fw.stats[:, 2].sum())
+                                  - tally(fw.stats[:, 2], c.packets_sent))
         c.bytes_sent = c.bytes_sent + self.size_bytes * sent
         return fw
 

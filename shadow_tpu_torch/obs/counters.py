@@ -79,8 +79,9 @@ class ObsBlock:
 
 
 def snapshot(state) -> dict:
-    """The block as host numpy, host rows in global host-id order; {} when
-    the state carries no block."""
+    """The block as host numpy, host rows in global host-id order and the
+    islands' window-plane rows summed; {} when the state carries no
+    block."""
     if state.obs is None:
         return {}
     blk = state.obs
@@ -93,6 +94,8 @@ def snapshot(state) -> dict:
         return out
 
     win = blk.win.cpu().numpy()
+    if win.ndim == 2:  # islands: one row a shard, summed
+        win = win.sum(axis=0)
     return {
         "block_version": BLOCK_VERSION,
         "win": {name: int(win[i]) for i, name in enumerate(WIN_NAMES)},

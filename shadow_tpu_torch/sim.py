@@ -3,9 +3,11 @@
 The JAX package's ``sim.py:build_simulation`` for PHOLD and the network
 stack (``udp_flood``, ``udp_echo``, ``tcp_bulk``): load the topology, attach
 and register the hosts, bake the paths, and build a ``Simulation`` whose
-window step runs on the device. Other app models and the engine options
-the port does not have yet raise ``BuildError`` naming their
-``ROADMAP.md`` queue item.
+window step runs on the device; with ``experimental.num_shards`` > 1 an
+``IslandSimulation`` (``parallel/islands.py``), which runs PHOLD on the
+matrix path and refuses the rest, naming its ``ROADMAP.md`` item. Other
+app models and the engine options the port does not have yet raise
+``BuildError`` naming their ``ROADMAP.md`` queue item.
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ class BuildError(ValueError):
 def _refuse_unported(cfg: Config) -> None:
     x = cfg.experimental
     unported = [
-        (x.num_shards > 1, "islands (num_shards > 1)", "A 9"),
         (x.pool_gears != 1, "pool gears (pool_gears != 1)", "A 6"),
         (x.flight_recorder > 0, "the flight recorder", "A 8"),
         (not x.obs_counters or not x.audit_digest,
@@ -167,6 +168,25 @@ def build_simulation(source, device=None) -> Simulation:
     return sim
 
 
+def _engine(cfg: Config, matrix: bool):
+    """The engine class and its extra arguments: an ``IslandSimulation``
+    for ``num_shards`` > 1 (``shadow_tpu/sim.py``'s islands branch: a sim
+    with the matrix path pins it, as a batched ``lax.cond`` under vmap
+    would run both paths), else ``Simulation``."""
+    x = cfg.experimental
+    if x.num_shards <= 1:
+        return Simulation, {}
+    from shadow_tpu_torch.parallel.islands import IslandSimulation
+
+    return IslandSimulation, dict(
+        num_shards=x.num_shards, exchange_slots=x.exchange_slots,
+        mode=x.island_mode, rebalance=x.rebalance, balancer=x.balancer,
+        async_sync=x.async_islands, placement=x.placement,
+        exclude_chips=x.exclude_chips, pool_gears=x.pool_gears,
+        force_path="matrix" if matrix else None,
+    )
+
+
 def _build_phold(cfg: Config, baked: BakedPaths, common: dict):
     H = common["num_hosts"]
     phold_hosts = cfg.hosts
@@ -201,7 +221,9 @@ def _build_phold(cfg: Config, baked: BakedPaths, common: dict):
     # the matrix path's draw-offset arithmetic (two draws per send) needs
     # every destination reachable; otherwise every window takes the loop
     reachable = not np.any(np.asarray(baked.latency_vv) == simtime.NEVER)
-    sim = Simulation(
+    cls, island_kw = _engine(cfg, reachable)
+    sim = cls(
+        **island_kw,
         **common,
         handlers=app.handlers(),
         bulk_kinds=bulk_kinds,
@@ -294,7 +316,9 @@ def _build_stack(cfg: Config, baked: BakedPaths, common: dict, name: str):
     subs = stack.init_subs()
     subs[app.SUB] = app.init_sub(dev)
     bulk_kinds = stack.bulk_kinds()
-    sim = Simulation(
+    cls, island_kw = _engine(cfg, False)
+    sim = cls(
+        **island_kw,
         **common,
         handlers=handlers,
         bulk_kinds=bulk_kinds,

@@ -24,6 +24,8 @@
 Tolerance: exact equality everywhere.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -41,7 +43,7 @@ from chip_smoke import mixed_flood
 from test_engine_phold import make_params
 from test_optimistic import MIXED_YAML
 from test_qdisc import _flood_cfg
-from test_torch_phold_variants import assert_runs_equal, run_both
+from test_torch_phold_variants import assert_runs_equal, run_all
 
 MS = 1_000_000
 SEC = 1_000_000_000
@@ -51,7 +53,7 @@ H, SEED, LAT, MSGLOAD = 6, 4242, 20 * MS, 32
 COST = np.array([0, 0, 0, 10 * MS, 10 * MS, 10 * MS], dtype=np.int64)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -59,26 +61,34 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _scenario(path, stop=2 * SEC, cost=COST):
-    """The scenario in both packages: "loop" (no bulk batch), "bulk" (the
-    loop path with the bulk batch) or "matrix"."""
-    bulk = path in ("bulk", "matrix")
+def _common(stop, cost):
+    return dict(num_hosts=H, host_vertex=np.zeros(H, np.int32), seed=SEED,
+                stop_time=stop, runahead=LAT, event_capacity=4096, K=16,
+                B=4, O=16, payload_words=PholdApp.PAYLOAD_WORDS,
+                cpu_ns_per_event=cost)
+
+
+def _jax_scenario(path, stop=2 * SEC, cost=COST):
+    """The scenario in the JAX package: "loop" (no bulk batch), "bulk"
+    (the loop path with the bulk batch) or "matrix"."""
     japp = JPholdApp(H, msgload=MSGLOAD, size_bytes=64, start_time=SEC,
                      runtime=2 * SEC)
-    app = PholdApp(H, msgload=MSGLOAD, size_bytes=64, start_time=SEC,
-                   runtime=2 * SEC)
-    common = dict(num_hosts=H, host_vertex=np.zeros(H, np.int32), seed=SEED,
-                  stop_time=stop, runahead=LAT, event_capacity=4096, K=16,
-                  B=4, O=16, payload_words=PholdApp.PAYLOAD_WORDS,
-                  cpu_ns_per_event=cost)
-    jsim = JSimulation(
+    return JSimulation(
         params=make_params(H, LAT, 1.0), handlers=japp.handlers(),
         subs={JPholdApp.SUB: japp.init_sub()},
         initial_events=japp.initial_events(),
-        bulk_kinds=japp.bulk_kinds() if bulk else None,
+        bulk_kinds=japp.bulk_kinds() if path != "loop" else None,
         matrix_handlers=japp.matrix_handlers() if path == "matrix" else None,
-        **common)
-    sim = Simulation(
+        **_common(stop, cost))
+
+
+def _port_scenario(path, stop=2 * SEC, cost=COST):
+    """The scenario in the port, as ``_jax_scenario`` builds it."""
+    bulk = path in ("bulk", "matrix")
+    app = PholdApp(H, msgload=MSGLOAD, size_bytes=64, start_time=SEC,
+                   runtime=2 * SEC)
+    common = _common(stop, cost)
+    return Simulation(
         params=NetParams(
             latency_vv=torch.full((1, 1), LAT, dtype=torch.int64),
             reliability_vv=torch.ones((1, 1), dtype=torch.float32),
@@ -88,13 +98,23 @@ def _scenario(path, stop=2 * SEC, cost=COST):
         bulk_kinds=app.bulk_kinds() if bulk else None,
         matrix_handler=app.handle_msg_matrix if path == "matrix" else None,
         device="cpu", **common)
-    return jsim, sim
+
+
+@pytest.fixture(scope="module")
+def scenario_runs():
+    """Each path's scenario run whole with ``run_stepwise`` by both
+    packages (the JAX ones side by side), once for the tests that read
+    it: {path: (port windows, port sim, JAX windows, JAX sim)}."""
+    paths = ("loop", "bulk", "matrix")
+    pairs = [(_jax_scenario(p), _port_scenario(p)) for p in paths]
+    jwins, windows = run_all(pairs, lambda s: s.run_stepwise())
+    return {p: (w, sim, jw, jsim) for p, (jsim, sim), jw, w
+            in zip(paths, pairs, jwins, windows)}
 
 
 @pytest.mark.parametrize("path", ["loop", "bulk", "matrix"])
-def test_cpu_model_matches_jax(path):
-    jsim, sim = _scenario(path)
-    jwin, windows = run_both(jsim, sim, lambda s: s.run_stepwise())
+def test_cpu_model_matches_jax(path, scenario_runs):
+    windows, sim, jwin, jsim = scenario_runs[path]
     assert windows == jwin
     assert_runs_equal(jsim, sim)
     c = sim.counters()
@@ -105,22 +125,18 @@ def test_cpu_model_matches_jax(path):
     assert sim.state.host.cpu_cost.tolist() == COST.tolist()
 
 
-def test_cpu_model_paths_and_stepwise_agree():
+def test_cpu_model_paths_and_stepwise_agree(scenario_runs):
     """The loop and matrix paths serialize alike (the JAX test's
     assertion); ``run_stepwise`` is ``run``, whole or from a cut; with
     every cost 0 the model is off and changes nothing."""
-    runs = {}
-    for path in ("loop", "matrix"):
-        _, sim = _scenario(path)
-        runs[path] = (sim.run_stepwise(), sim)
-    (wl, lp), (wm, mx) = runs["loop"], runs["matrix"]
+    (wl, lp), (wm, mx) = (scenario_runs[p][:2] for p in ("loop", "matrix"))
     cl, cm = lp.counters(), mx.counters()
     for k in ("cpu_delay_applied", "events_committed", "packets_sent"):
         assert cl[k] == cm[k] > 0, k
     assert torch.equal(lp.state.host.cpu_avail, mx.state.host.cpu_avail)
     assert lp.audit_chain() == mx.audit_chain()
-    _, a = _scenario("matrix")
-    _, b = _scenario("matrix")
+    a = _port_scenario("matrix")
+    b = _port_scenario("matrix")
     cut = SEC + 500 * MS
     assert a.run(until=cut) == b.run_stepwise(until=cut) > 0
     assert a.counters() == b.counters() != cm
@@ -131,8 +147,8 @@ def test_cpu_model_paths_and_stepwise_agree():
         assert s.audit_chain() == mx.audit_chain()
         assert s.counters()["cpu_delay_applied"] == cm["cpu_delay_applied"]
         assert torch.equal(s.state.host.cpu_avail, mx.state.host.cpu_avail)
-    _, off = _scenario("matrix", cost=np.zeros(H, np.int64))
-    _, none = _scenario("matrix", cost=None)
+    off = _port_scenario("matrix", cost=np.zeros(H, np.int64))
+    none = _port_scenario("matrix", cost=None)
     assert not off.with_cpu and not none.with_cpu
     assert off.run() == none.run()
     assert off.counters() == none.counters()
@@ -140,14 +156,42 @@ def test_cpu_model_paths_and_stepwise_agree():
     assert off.audit_chain() == none.audit_chain() != mx.audit_chain()
 
 
-def test_cpu_model_udp_flood_matches_jax():
-    """The server at 20 ms an event, and the clients at 60 ms against their
-    50 ms timer, so their sends (the emitted history) run late."""
+def _loaded_flood():
+    """The flood with its server at 20 ms an event and its clients at
+    60 ms."""
     cfg = _flood_cfg()
     cfg["hosts"]["server"]["cpu_ns_per_event"] = "20 ms"
     cfg["hosts"]["client"]["cpu_ns_per_event"] = "60 ms"
-    jsim, sim = jax_build(cfg), build_simulation(cfg, device="cpu")
-    run_both(jsim, sim, lambda s: s.run())
+    return cfg
+
+
+def _loaded_mixed():
+    """The mixed flood with its eight far clients at 60 ms an event."""
+    cfg = mixed_flood()
+    cfg["hosts"]["far"]["cpu_ns_per_event"] = "60 ms"
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def flood_runs():
+    """The loaded flood under ``run`` and the loaded mixed flood under
+    ``run_optimistic``, each by both packages, the two JAX runs side by
+    side: {name: (JAX sim, port sim, JAX result, port result)}."""
+    jobs = {"flood": (_loaded_flood(), lambda s: s.run()),
+            "mixed": (_loaded_mixed(), lambda s: s.run_optimistic())}
+    pairs = {k: (jax_build(cfg), build_simulation(cfg, device="cpu"))
+             for k, (cfg, _) in jobs.items()}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        refs = {k: pool.submit(run, pairs[k][0])
+                for k, (_, run) in jobs.items()}
+        got = {k: run(pairs[k][1]) for k, (_, run) in jobs.items()}
+        return {k: (*pairs[k], refs[k].result(), got[k]) for k in jobs}
+
+
+def test_cpu_model_udp_flood_matches_jax(flood_runs):
+    """The server at 20 ms an event, and the clients at 60 ms against their
+    50 ms timer, so their sends (the emitted history) run late."""
+    jsim, sim, _, _ = flood_runs["flood"]
     assert_runs_equal(jsim, sim)
     c = sim.counters()
     assert c["cpu_delay_applied"] > 0 and c["packets_delivered"] > 0
@@ -156,20 +200,17 @@ def test_cpu_model_udp_flood_matches_jax():
     assert c["packets_sent"] < 3 * (SEC // (50 * MS))
 
 
-def test_cpu_model_optimistic_matches_jax_and_rolls_back():
+def test_cpu_model_optimistic_matches_jax_and_rolls_back(flood_runs):
     """The mixed flood (speculative windows roll back on its loop path)
     with its eight far clients at 60 ms an event against a timer every
     40 ms: their sends fall behind. The loaded hosts receive from no other
     host, so no violation lands past a window (C4 cannot arise)."""
-    cfg = mixed_flood()
-    cfg["hosts"]["far"]["cpu_ns_per_event"] = "60 ms"
-    jsim, sim = jax_build(cfg), build_simulation(cfg, device="cpu")
-    jres, res = run_both(jsim, sim, lambda s: s.run_optimistic())
+    jsim, sim, jres, res = flood_runs["mixed"]
     assert res == jres and res[1] > 0
     assert_runs_equal(jsim, sim)
     assert sim.counters()["cpu_delay_applied"] > 0
     # a rolled-back attempt leaves its base's CPU clocks as they were
-    sim = build_simulation(cfg, device="cpu")
+    sim = build_simulation(_loaded_mixed(), device="cpu")
     cons = sim.runahead
     neg1 = torch.full((sim.num_hosts,), -1, dtype=torch.int64)
     sim.state = sim.state.with_host(done_t=neg1)

@@ -1532,3 +1532,122 @@ def test_rolled_back_qdisc_attempt_keeps_its_base(card):
     _, _, viol, _, seen = chip_smoke.rolled_back_attempt(
         sim, counts, ("qdisc_enqueue", "qdisc_dequeue"))
     assert viol < NEVER and seen["qdisc_enqueue"] > 0
+
+
+# -- the islands engine (K24 island_route, K19 and K3 with the shard dim) --
+
+ISLANDS_PHOLD = {  # tests/test_islands.py's _phold_cfg(num_shards=4)
+    "general": {"stop_time": 3, "seed": 42},
+    "network": {"graph": {"type": "gml", "inline": SELF_LOOP_50MS_GML}},
+    "experimental": {"event_capacity": 1024,
+                     "events_per_host_per_window": 8, "outbox_slots": 8,
+                     "inbox_slots": 4, "num_shards": 4,
+                     "exchange_slots": 32},
+    "hosts": {"peer": {"quantity": 64, "app_model": "phold",
+                       "app_options": {"msgload": 2, "runtime": 2}}},
+}
+
+
+def _islands_sim(device, X=32, S=4):
+    exp = dict(ISLANDS_PHOLD["experimental"], exchange_slots=X,
+               num_shards=S)
+    return build_simulation({**ISLANDS_PHOLD, "experimental": exp},
+                            device=device)
+
+
+def _island_windows(sim, n):
+    """The first n windows of an islands run: (state, ws, we) before
+    each."""
+    out = []
+    for _ in range(n):
+        mn, _, clamp = sim._island_frontier()
+        if mn >= sim.stop_time:
+            break
+        we = max(mn, min(mn + sim.runahead, sim.stop_time, clamp))
+        out.append((sim.state, mn, we))
+        sim.state = _clone_state(sim.state)
+        sim.step(mn, we)
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 8])
+def test_window_sort_and_extract_with_shards_match_plain(card, S):
+    """window_sort and extract_slots over S shards equal their plain
+    versions: an islands run's real windows (S = 8: 64 hosts, X = 1, so
+    rows deferred to other shards sit in every shard's pool), seeded
+    [S, C] pools with rows of every shard's hosts (foreign, past the
+    window, free) at the bench shape's widths and at C not a multiple of
+    the tile; S = 1 is the global engine's call, as before."""
+    if S > 1:
+        sim = _islands_sim(card, X=1, S=S)
+        for st, ws, we in _island_windows(sim, 6)[2:]:
+            args = (st.pool.time, st.pool.dst, st.pool.src, st.pool.seq,
+                    ws, we, sim.num_hosts, sim.K, S)
+            _sort_eq(args)
+            s_k1, perm = kernels.window_sort(*args)
+            p = st.pool
+            _extract_eq((s_k1, perm, p.time, p.dst, p.src, p.seq, p.kind,
+                         p.payload, sim.num_hosts, sim.K, S))
+    rs = np.random.default_rng(41 + S)
+    ws, we = 5_000_000_000, 5_010_000_000
+    for C, H, Kc in ((S * 40_960, 16_384, 24), (S * 4097, S * 37, 5),
+                     (S, S, 1)):
+        pool = _random_pool(rs, C, H, ws, we, 2, card)
+        shaped = type(pool)(**{k: v.reshape((S, C // S) + v.shape[1:])
+                               for k, v in vars(pool).items()})
+        s_k1, perm = engine.window_keys(shaped, ws, we, H, Kc,
+                                        shards=S)
+        _sort_eq((shaped.time, shaped.dst, shaped.src, shaped.seq, ws, we,
+                  H, Kc, S))
+        _extract_eq((s_k1, perm, shaped.time, shaped.dst, shaped.src,
+                     shaped.seq, shaped.kind, shaped.payload, H, Kc, S))
+
+
+@pytest.mark.parametrize("S", [2, 8, 16])
+@pytest.mark.parametrize("X", [1, 64, 2048])
+def test_island_route_matches_plain(card, S, X):
+    """island_route equals its plain version on every cell of every
+    shard's next pool and its four counts: chip_smoke.synthetic_route's
+    candidates (a shard with every row foreign, one whose foreign groups
+    are all but empty, dt ties, dt at DT_MAX, NEVER rows interleaved),
+    at pools whose remainder passes C_keep."""
+    Hl, K = 32, 8
+    C = S * X + max(512, S * X // 2)
+    (tail, em), kw = chip_smoke.synthetic_route(
+        S, X, Hl, C, C + Hl * K, card, seed=S * 7 + X)
+    n = kernels.ISLAND_ROUTE.launches
+    got = kernels.island_route(tail, em, **kw)
+    assert kernels.ISLAND_ROUTE.launches == n + 1
+    want = kernels.island_route_plain(tail, em, **kw)
+    _eq(got, want)
+    assert int(want.stats[:, 0].sum()) > 0  # rows dropped
+    assert int(want.stats[:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("X", [32, 1])
+def test_islands_run_matches_plain(card, X):
+    """tests/test_islands.py's PHOLD over 4 shards (X = 32, and X = 1,
+    where rows defer every window) to its end through the kernels and
+    through the plain versions on the card: windows, counters, chain and
+    every state array equal; island_route launched once a window,
+    spec_check and pool_merge never."""
+    from shadow_tpu_torch import interop
+
+    runs = []
+    for ops in (kernels.KERNEL_OPS, kernels.PLAIN_OPS):
+        sim = _islands_sim(card, X=X)
+        sim.ops = ops
+        kernels.reset_launches()
+        w = sim.run_stepwise()
+        runs.append((w, sim.counters(), sim.audit_chain(),
+                     interop.state_to_numpy(sim.state)))
+        if ops is kernels.KERNEL_OPS:
+            assert kernels.ISLAND_ROUTE.launches == w
+            assert kernels.SPEC_CHECK.launches == 0
+            assert kernels.POOL_MERGE.launches == 0
+    (w1, c1, ch1, s1), (w2, c2, ch2, s2) = runs
+    assert (w1, c1, ch1) == (w2, c2, ch2)
+    assert sorted(s1) == sorted(s2)
+    for p in s1:
+        assert np.array_equal(s1[p], s2[p]), p
+    assert c1["exchange_deferred"] > 0 or X == 32

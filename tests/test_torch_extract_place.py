@@ -14,6 +14,7 @@ to ``shadow_tpu.core.engine._dense_extract`` on the same seeded pool.
 Tolerance: exact equality, every column and every row.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,10 @@ from shadow_tpu_torch.core import engine as tengine
 from shadow_tpu_torch.core import state as tstate
 
 NEVER = np.iinfo(np.int64).max
+# the JAX package runs _dense_extract jitted (make_window_step); one
+# compile a shape costs less than the ops dispatched one by one
+_jax_dense_extract = jax.jit(jengine._dense_extract,
+                             static_argnums=(3, 4, 5))
 MS = 1_000_000
 DT_BITS, DT_MAX = kernels.DT_BITS, kernels.DT_MAX
 # the kernel's block of rows, as its source sets it
@@ -143,7 +148,7 @@ def test_placement_matches_jax(case):
         ("mixed", "h1", "halo")) else case)
     k1, perm = first_sort(cols, ws, we, H, Kc)
     placed, tail_dst = place(k1, perm, cols, H, Kc)
-    jd, jt = jengine._dense_extract(
+    jd, jt = _jax_dense_extract(
         jstate.EventPool(**{k: jnp.asarray(v) for k, v in cols.items()}),
         ws, we, H, Kc, PP,
     )

@@ -85,9 +85,10 @@ def test_echo_golden_chain():
                                        "size": 512}},
         },
     }
-    assert _chain(cfg) == _GOLDEN_ECHO
     sim = build_simulation(cfg, device="cpu")
     sim.run()
+    assert (sim.audit_chain(),
+            sim.counters()["events_committed"]) == _GOLDEN_ECHO
     sub = sim.state.subs["udp_echo"]
     # 2 s of 200 ms requests, echoed over the 50 ms path both ways
     assert int(sub["rtt_count"].sum()) == int(sub["echoed"].sum()) == 10

@@ -14,6 +14,8 @@ Tolerance: exact equality everywhere; the path is integer arithmetic and
 float32 with a defined rounding.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import numpy as np
 import pytest
@@ -64,12 +66,19 @@ def test_flagship_matches_jax_whole_and_from_midrun(H, msgload):
                           np.asarray(jsim.params.latency_vv))
     assert np.array_equal(port.params.reliability_vv.numpy(),
                           np.asarray(jsim.params.reliability_vv))
-    jsim.run(until=2 * SEC)
-    mid = jax_state_to_numpy(jsim.state, paths)
-    jsim.run()
-    want = jax_state_to_numpy(jsim.state, paths)
 
-    windows = port.run()
+    def jax_run():
+        jsim.run(until=2 * SEC)
+        mid = jax_state_to_numpy(jsim.state, paths)
+        jsim.run()
+        return mid, jax_state_to_numpy(jsim.state, paths)
+
+    # the JAX run spends its time in XLA, outside the GIL, so it runs in a
+    # second thread beside the port's
+    with ThreadPoolExecutor(1) as pool:
+        ref = pool.submit(jax_run)
+        windows = port.run()
+        mid, want = ref.result()
     assert windows == port.counters()["micro_steps"] > 0
     assert port.counters() == jsim.counters()
     assert port.audit_chain() == jsim.audit_chain()
@@ -136,8 +145,36 @@ def test_port_refuses_what_it_does_not_run():
     yet, raise at build instead of running something else."""
     with pytest.raises(BuildError, match="outbox_slots"):
         build_phold_flagship(40, msgload=2, K=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_phold_flagship(64, num_shards=2, device="cpu")
+    # islands build, and refuse what the port does not run under them:
+    # run() under async islands (the JAX default), shard_map, the loop
+    # path (and its NIC tallies) and rebalancing, each naming its
+    # ROADMAP.md item
+    isl = build_phold_flagship(64, num_shards=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A 9, the async driver"):
+        isl.run()
+    with pytest.raises(NotImplementedError, match="A 9, the loop path"):
+        isl.host_trackers()
+    with pytest.raises(NotImplementedError, match="A 9, balancer and mesh"):
+        build_phold_flagship(64, num_shards=2, island_mode="shard_map",
+                             device="cpu")
+    flood = {
+        "general": {"stop_time": 2},
+        "network": {"graph": {"type": "1_gbit_switch"}},
+        "experimental": {"num_shards": 2, "event_capacity": 4096},
+        "hosts": {"s": {"app_model": "udp_flood",
+                        "app_options": {"role": "server"}},
+                  "c": {"quantity": 3, "app_model": "udp_flood"}},
+    }
+    with pytest.raises(NotImplementedError, match="A 9, the loop path"):
+        build_simulation(flood, device="cpu")
+    with pytest.raises(NotImplementedError, match="A 9, balancer and mesh"):
+        build_simulation({
+            "general": {"stop_time": 2},
+            "network": {"graph": {"type": "1_gbit_switch"}},
+            "experimental": {"num_shards": 2, "rebalance": True,
+                             "event_capacity": 4096},
+            "hosts": {"h": {"quantity": 4, "app_model": "phold"}},
+        }, device="cpu")
     with pytest.raises(BuildError, match="A 6"):
         build_simulation({
             "general": {"stop_time": 2},

@@ -110,10 +110,18 @@ def _pair(opts, path, H=40, msgload=4, K=8, cost=None):
 def run_both(jsim, sim, run):
     """Run both (the JAX one in a thread: XLA leaves the GIL); returns
     their results."""
-    with ThreadPoolExecutor(1) as pool:
-        ref = pool.submit(run, jsim)
-        got = run(sim)
-        return ref.result(), got
+    (ref,), (got,) = run_all([(jsim, sim)], run)
+    return ref, got
+
+
+def run_all(pairs, run, workers: int = 4):
+    """Run every (JAX sim, port sim) pair: the JAX ones in threads, up to
+    ``workers`` at once (XLA's compiles and runs leave the GIL), the port
+    ones here meanwhile. Returns ([JAX results], [port results])."""
+    with ThreadPoolExecutor(workers) as pool:
+        refs = [pool.submit(run, jsim) for jsim, _ in pairs]
+        got = [run(sim) for _, sim in pairs]
+        return [r.result() for r in refs], got
 
 
 def assert_runs_equal(jsim, sim):
@@ -125,14 +133,24 @@ def assert_runs_equal(jsim, sim):
                         jax_state_to_numpy(jsim.state, paths))
 
 
-@pytest.mark.parametrize("path", ["matrix", "loop"])
-@pytest.mark.parametrize("opts", [
-    {"hot_frac": 0.1, "hot_share": 0.3},
-    {"local_span": 3},
-])
-def test_variant_run_matches_jax(opts, path):
-    jsim, sim = _pair(opts, path)
-    _, windows = run_both(jsim, sim, lambda s: s.run())
+VARIANT_OPTS = [{"hot_frac": 0.1, "hot_share": 0.3}, {"local_span": 3}]
+VARIANT_PATHS = ["matrix", "loop"]
+
+
+@pytest.fixture(scope="module")
+def variant_runs():
+    """The four variant runs, each by both packages, the JAX ones side by
+    side: {(opts index, path): (JAX sim, port sim, port windows)}."""
+    keys = [(i, p) for i in range(len(VARIANT_OPTS)) for p in VARIANT_PATHS]
+    pairs = [_pair(VARIANT_OPTS[i], p) for i, p in keys]
+    _, windows = run_all(pairs, lambda s: s.run())
+    return {k: (*pair, w) for k, pair, w in zip(keys, pairs, windows)}
+
+
+@pytest.mark.parametrize("path", VARIANT_PATHS)
+@pytest.mark.parametrize("opts", VARIANT_OPTS)
+def test_variant_run_matches_jax(opts, path, variant_runs):
+    jsim, sim, windows = variant_runs[(VARIANT_OPTS.index(opts), path)]
     assert_runs_equal(jsim, sim)
     win = sim.obs_snapshot()["win"]
     assert win["windows_run"] == windows

@@ -38,6 +38,12 @@ def _trees(path):
             yield ast.parse(node.value.value)
 
 
+def test_sources_hold_the_islands_package():
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    assert {"shadow_tpu_torch/parallel/__init__.py",
+            "shadow_tpu_torch/parallel/islands.py"} <= names
+
+
 @pytest.mark.parametrize(
     "path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
@@ -172,3 +178,20 @@ def test_qdisc_wrappers_take_no_other_device(disc):
             kernels.qdisc_enqueue(fields, mask, dst, payload, now, spec=spec)
     assert kernels.QDISC_ENQUEUE.launches == 0
     assert kernels.QDISC_DEQUEUE.launches == 0
+
+
+def test_island_route_takes_no_other_device():
+    """K24 decides by every column of both its blocks: one elsewhere is
+    refused; on the CPU it runs its plain version and launches nothing."""
+    from chip_smoke import synthetic_route
+
+    (tail, em), kw = synthetic_route(2, 4, 8, 48, 80, "cpu", PP=2)
+    for name, b in (("tail", tail), ("em", em)):
+        for f in b._fields:
+            moved = b._replace(**{f: getattr(b, f).to("meta")})
+            args = (moved, em) if name == "tail" else (tail, moved)
+            with pytest.raises(ValueError):
+                kernels.island_route(*args, **kw)
+    out = kernels.island_route(tail, em, **kw)
+    assert out.time.shape == (2, 48) and out.time.device.type == "cpu"
+    assert kernels.ISLAND_ROUTE.launches == 0

@@ -49,6 +49,10 @@ from shadow_tpu.core import state as jstate
 from shadow_tpu_torch import kernels
 
 NEVER = np.iinfo(np.int64).max
+# the JAX package runs _dense_extract jitted (make_window_step); one
+# compile a shape costs less than the ops dispatched one by one
+_jax_dense_extract = jax.jit(jengine._dense_extract,
+                             static_argnums=(3, 4, 5))
 MS = 1_000_000
 DT_BITS, DT_MAX = kernels.DT_BITS, kernels.DT_MAX
 SIGN = np.uint64(1 << 63)
@@ -102,14 +106,14 @@ def _window(case):
 
 
 # against the JAX package: the cases whose orders differ in kind (each
-# JAX call compiles its sorts, about 2 s); the models take all four
+# shape compiles the JAX extraction once); the models take all four
 @pytest.mark.parametrize("case", ["clamped", "mixed"])
 def test_window_sort_plain_matches_jax(case):
     seed, C, H, Kc, PP, kind = SORT_CASES[case]
     rs = np.random.default_rng(seed)
     ws, we = _window(case)
     cols = _pool(rs, C, H, ws, we, PP, kind)
-    jd, jt = jengine._dense_extract(
+    jd, jt = _jax_dense_extract(
         jstate.EventPool(**{k: jnp.asarray(v) for k, v in cols.items()}),
         ws, we, H, Kc, PP)
     t = {k: torch.from_numpy(v) for k, v in cols.items()}

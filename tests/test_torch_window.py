@@ -14,6 +14,7 @@ Tolerance: exact equality everywhere. The path is integer arithmetic and
 float32 with a defined rounding, so a value that is only close is a fault.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +35,10 @@ from shadow_tpu_torch.net.apps import PholdApp as TPhold
 from shadow_tpu_torch.routing.topology import Topology as TTopology
 
 NEVER = np.iinfo(np.int64).max
+# the JAX package runs _dense_extract jitted (make_window_step); one
+# compile a shape costs less than the ops dispatched one by one
+_jax_dense_extract = jax.jit(jengine._dense_extract,
+                             static_argnums=(3, 4, 5))
 MS = 1_000_000
 
 
@@ -72,7 +77,7 @@ def test_dense_extract_matches_jax(seed, C, H, Kc, PP):
     rs = np.random.default_rng(seed)
     ws, we = 1_000 * MS, 1_050 * MS
     cols = _random_pool(rs, C, H, ws, we, PP)
-    jd, jt = jengine._dense_extract(
+    jd, jt = _jax_dense_extract(
         jstate.EventPool(**{k: jnp.asarray(v) for k, v in cols.items()}),
         ws, we, H, Kc, PP,
     )
